@@ -1,12 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port (`swarmkit_tpu_torch`).
 
-Drives the port's main path on one CUDA card and fails (exit code != 0, no
+Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the four kernels from csrc/, all at once;
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the main path's shapes (10,000 nodes, 20 groups; a
+  2. build    — nvcc builds the eight kernels from csrc/, all at once;
+  3. kernels  — K1-K4 against their plain PyTorch versions on the card, at
+                the main path's shapes (10,000 nodes, 20 groups; a
                 5 x 2^20 raft log), exactly equal; times by CUDA events;
   4. waves    — three scheduler waves of 100,000 tasks (20 services x 5,000)
                 onto 10,000 nodes: encode -> device_schedule_encoded ->
@@ -15,8 +15,23 @@ result line) if any phase fails:
   5. flagship — entry()'s cluster step at 10,000 nodes x 20 groups x 5,000
                 tasks over a 2^20-entry, 5-manager log: counts and totals
                 equal to the CPU oracle, commit index equal to a numpy tally;
-  6. launches — every kernel launched in phases 4-5 (counters are zeroed
-                just before phase 4 and read just after phase 5).
+  6. steady   — the device-resident tick (ResidentPlacement) with
+                TickPipeline(depth=3): a cold tick and 8 pipelined waves on
+                the grid (10,000 nodes, 20 x 5,000 tasks a wave: dense
+                counts pulls) and on a node-heavy cluster (100,000 nodes,
+                20 x 500 tasks a wave: sparse pulls), with task completions
+                (delta rows) and one invalidate() (a cold re-upload) in
+                each; then 3 resident ticks of the flagship cluster (tree
+                fill, LMAX 3 padded to 4 levels). Every wave's counts equal
+                the CPU oracle on its completed problem, and the carry its
+                dispatch left on the card equals the kernels' expected
+                fold; all three svc-matrix upload branches and both pull
+                forms are taken;
+  7. resident kernels — K5-K8 against their plain versions on inputs
+                recorded from phase 6, times by CUDA events.
+
+Each path (phases 4-5, and phase 6) runs with every launch count set to 0
+just before it, and fails unless each of its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
 line of its output is {"ok": true, "device": {...}}.
@@ -42,6 +57,10 @@ TASKS_PER_GROUP = 5_000
 N_MANAGERS = 5
 LOG_LEN = 1 << 20
 N_WAVES = 3
+STEADY_WAVES = 8             # pipelined waves after each cold tick
+HEAVY_NODES = 100_000        # node-heavy steady configuration
+HEAVY_PER_SERVICE = 500
+FLAGSHIP_TICKS = 3
 
 
 def log(msg: str) -> None:
@@ -424,6 +443,405 @@ def phase_flagship(seed, flag_p):
         f"{dt:.3f} s (host clock, synchronised)")
 
 
+# ------------------------------------------------------------ steady tick
+CARRY_FIELDS = ("ready", "node_val", "port_used", "avail_res", "total0")
+
+
+def tapped_resident(enc):
+    """A ResidentPlacement that, right after each dispatch, copies the carry
+    it left on the card into pinned host memory (non-blocking, then an
+    event), so each wave's carry is checked once the wave completes without
+    making the pipeline wait."""
+    from collections import deque
+
+    from swarmkit_tpu_torch.ops.resident import (
+        STATE_FIELDS,
+        ResidentPlacement,
+    )
+
+    class Tapped(ResidentPlacement):
+        def __init__(self, encoder):
+            super().__init__(encoder)
+            self.taps = deque()
+
+        def schedule_async(self, p):
+            h = super().schedule_async(p)
+            st = dict(zip(STATE_FIELDS, self._state))
+            if st["total0"].is_cuda:
+                host = {k: torch.empty(st[k].shape, dtype=st[k].dtype,
+                                       pin_memory=True) for k in CARRY_FIELDS}
+                for k in CARRY_FIELDS:
+                    host[k].copy_(st[k], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            else:
+                host, ev = {k: st[k].clone() for k in CARRY_FIELDS}, None
+            self.taps.append((host, ev))
+            return h
+
+    return Tapped(enc)
+
+
+def check_wave(name, w, rp, p, counts):
+    """The wave's counts against the CPU oracle on its completed problem,
+    and the carry its dispatch left on the card against the kernels' fold
+    (tests/test_resident.py expected_device_fold)."""
+    from swarmkit_tpu_torch.scheduler import batch
+
+    oracle = batch.cpu_schedule_encoded(p)
+    if counts.shape != oracle.shape or not np.array_equal(counts, oracle):
+        fail(f"[steady] {name} wave {w}: counts differ from the CPU oracle")
+    host, ev = rp.taps.popleft()
+    if ev is not None:
+        ev.synchronize()
+    st = {k: v.numpy() for k, v in host.items()}
+    N, R, PV = len(p.node_ids), p.avail_res.shape[1], p.port_used0.shape[1]
+    port = p.port_used0.copy()
+    for gi in np.flatnonzero(counts.sum(axis=1)):
+        port |= p.group_ports[gi][None, :] & (counts[gi] > 0)[:, None]
+    want = {"total0": p.total0 + counts.sum(axis=0).astype(np.int32),
+            "avail_res": (p.avail_res.astype(np.int64)
+                          - counts.astype(np.int64).T
+                          @ p.need_res.astype(np.int64)).astype(np.int32),
+            "port_used": port, "ready": p.ready, "node_val": p.node_val}
+    got = {"total0": st["total0"][:N], "avail_res": st["avail_res"][:N, :R],
+           "port_used": st["port_used"][:N, :PV], "ready": st["ready"][:N],
+           "node_val": st["node_val"][:N, :p.node_val.shape[1]]}
+    for k in CARRY_FIELDS:
+        if not np.array_equal(got[k], want[k]):
+            fail(f"[steady] {name} wave {w}: carried {k} differs from the "
+                 "expected fold")
+    return int(counts.sum())
+
+
+def finish_tasks(enc, infos, n_nodes):
+    """Task completions on n_nodes nodes (one task each), fed to the
+    tracked encoder as marks: external node changes, so the next tick
+    drains and ships those rows as deltas."""
+    done = 0
+    for info in infos:
+        if done == n_nodes:
+            break
+        if info.tasks:
+            info.remove_task(next(iter(info.tasks.values())))
+            enc.mark_numeric(info)
+            done += 1
+    return done
+
+
+def steady_run(name, infos, make_groups, n_waves, churn_at, invalidate_at,
+               depth=3):
+    """A cold tick (ResidentPlacement.schedule, full upload), then n_waves
+    steady waves through TickPipeline(depth), then a flush, on a tracked
+    encoder (the zero-scan steady path the scheduler takes). Task
+    completions before wave churn_at ship delta rows; invalidate() before
+    wave invalidate_at forces a cold re-upload. Both drain the pipe, so
+    they come after the steady stretch."""
+    from swarmkit_tpu_torch.ops.pipeline import TickPipeline
+    from swarmkit_tpu_torch.scheduler import batch
+    from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder
+
+    t0 = time.perf_counter()
+    waves = [make_groups(w) for w in range(n_waves + 1)]
+    log(f"[steady] {name}: built {n_waves + 1} waves of pending tasks in "
+        f"{time.perf_counter() - t0:.1f} s (host, not timed below)")
+    by_node = {i.node.id: i for i in infos}
+
+    def commit(p, counts):
+        orders = batch.materialize_orders(p, counts)
+        added = batch.apply_wave([by_node[nid] for nid in p.node_ids],
+                                 p.groups, orders)
+        if added != int(counts.sum()):
+            fail(f"[steady] {name}: committed {added} of "
+                 f"{int(counts.sum())} placements")
+
+    enc = IncrementalEncoder(tracked=True)
+    rp = tapped_resident(enc)
+    t0 = time.perf_counter()
+    p = enc.encode(infos, waves[0])
+    t1 = time.perf_counter()
+    counts = rp.schedule(p)
+    t2 = time.perf_counter()
+    placed = [check_wave(name, 0, rp, p, counts)]
+    t3 = time.perf_counter()
+    commit(p, counts)
+    enc.apply_counts(p, counts)
+    rp.after_apply(p, counts)
+    t4 = time.perf_counter()
+    log(f"[steady] {name} cold tick: encode {t1 - t0:.4f} + device "
+        f"(upload, fill, pull) {t2 - t1:.4f} + commit {t4 - t3:.4f} s "
+        f"(host clock)")
+
+    pipe = TickPipeline(enc, rp, commit, depth=depth)
+    t_check = 0.0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+
+    def completed(done):
+        nonlocal t_check
+        t0 = time.perf_counter()
+        for p, counts in done:
+            placed.append(check_wave(name, len(placed), rp, p, counts))
+        t_check += time.perf_counter() - t0
+
+    for w in range(1, n_waves + 1):
+        if w == churn_at:
+            n = finish_tasks(enc, infos, 32)
+            log(f"[steady] {name}: {n} tasks finished before wave {w}")
+        if w == invalidate_at:
+            rp.invalidate()
+            log(f"[steady] {name}: invalidate() before wave {w}")
+        completed(pipe.tick(infos, waves[w]))
+        t = pipe.timings[-1]
+        log(f"[steady] {name} wave {w}: wall {t['wall_s']:.4f} s = encode "
+            f"{t['encode_s']:.4f} + dirty scan {t['dirty_scan_s']:.4f} + "
+            f"dispatch {t['dispatch_s']:.4f} + pull residual "
+            f"{t['pull_s']:.4f} + fold {t['fold_s']:.4f} + commit "
+            f"{t['commit_s']:.4f}; serial {t['serial_fallback']} "
+            f"(host clock)")
+    done = pipe.flush()
+    for t in pipe.timings[-len(done):]:
+        log(f"[steady] {name} flush: wall {t['wall_s']:.4f} s = pull "
+            f"residual {t['pull_s']:.4f} + fold {t['fold_s']:.4f} + commit "
+            f"{t['commit_s']:.4f} (host clock)")
+    completed(done)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    if len(placed) != n_waves + 1 or rp.taps:
+        fail(f"[steady] {name}: {len(placed)} waves completed of "
+             f"{n_waves + 1}")
+    log(f"[steady] {name}: {sum(placed)} tasks placed in {n_waves + 1} "
+        f"waves {placed}, every wave equal to the CPU oracle and every "
+        f"carry equal to the expected fold; {t_end - t_start - t_check:.3f} "
+        f"s for the {n_waves} pipelined waves and the flush (host clock, "
+        f"synchronised, checks excluded); uploads: full {rp.uploads_full} "
+        f"{rp.uploads_svc}, delta rows {rp.uploads_delta_rows}, group "
+        f"tables {rp.uploads_group_tables}, {rp.uploads_h2d_bytes} bytes; "
+        f"pulls {rp.pulls}; "
+        f"{sum(t['serial_fallback'] for t in pipe.timings)} serial ticks")
+    return rp
+
+
+def flagship_waves(n_waves, seed):
+    """The flagship cluster and n_waves waves of its 20 groups (new task
+    ids and spec versions per wave)."""
+    from swarmkit_tpu_torch.models.cluster_step import example_cluster
+
+    infos, first = example_cluster(N_NODES, N_GROUPS, TASKS_PER_GROUP, seed)
+    out = [first]
+    for w in range(1, n_waves):
+        _, groups = example_cluster(1, N_GROUPS, TASKS_PER_GROUP, seed)
+        for g in groups:
+            g.spec_version = w + 1
+            for t in g.tasks:
+                t.id = f"w{w}-{t.id}"
+            g.ids = [t.id for t in g.tasks]
+        out.append(groups)
+    return infos, out
+
+
+def flagship_ticks(seed, n_ticks):
+    """n_ticks serial resident ticks of the flagship cluster (tree fill,
+    LMAX 3 padded to 4 levels, host ports, generic resources)."""
+    from swarmkit_tpu_torch.scheduler import batch
+    from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder
+
+    infos, waves = flagship_waves(n_ticks, seed)
+    by_node = {i.node.id: i for i in infos}
+    enc = IncrementalEncoder(tracked=True)
+    rp = tapped_resident(enc)
+    for w, groups in enumerate(waves):
+        t0 = time.perf_counter()
+        p = enc.encode(infos, groups)
+        t1 = time.perf_counter()
+        counts = rp.schedule(p)
+        t2 = time.perf_counter()
+        if p.spread_rank.shape[1] != 3:
+            fail(f"[steady] flagship tree: LMAX {p.spread_rank.shape[1]}")
+        placed = check_wave("flagship tree", w, rp, p, counts)
+        t3 = time.perf_counter()
+        orders = batch.materialize_orders(p, counts)
+        rows = [by_node[nid] for nid in p.node_ids]
+        if batch.apply_wave(rows, p.groups, orders) != placed:
+            fail("[steady] flagship tree: commit disagrees with counts")
+        enc.apply_counts(p, counts)
+        rp.after_apply(p, counts)
+        t4 = time.perf_counter()
+        log(f"[steady] flagship tree tick {w}: {placed} tasks placed, equal "
+            f"to the CPU oracle, carry equal to the expected fold; encode "
+            f"{t1 - t0:.4f} + device (upload, fill, pull) {t2 - t1:.4f} + "
+            f"commit {t4 - t3:.4f} s (host clock)")
+    return rp
+
+
+def phase_steady(seed, recorder):
+    """The resident steady tick at full width: grid (dense pulls), node-
+    heavy (sparse pulls), flagship tree. Returns the resident objects."""
+    out = {}
+    recorder.active = True
+    out["grid"] = steady_run(
+        "grid", grid_nodes(random.Random(seed + 1), N_NODES),
+        lambda w: grid_groups(100 + w, N_GROUPS, TASKS_PER_GROUP),
+        STEADY_WAVES, churn_at=7,
+        invalidate_at=8)
+    out["node-heavy"] = steady_run(
+        "node-heavy", grid_nodes(random.Random(seed + 2), HEAVY_NODES),
+        lambda w: grid_groups(200 + w, N_GROUPS, HEAVY_PER_SERVICE),
+        STEADY_WAVES, churn_at=7, invalidate_at=8)
+    out["flagship tree"] = flagship_ticks(seed, FLAGSHIP_TICKS)
+    recorder.active = False
+    svc = {k: sum(rp.uploads_svc[k] for rp in out.values())
+           for k in ("zeros", "sparse", "dense")}
+    pulls = {k: sum(rp.pulls[k] for rp in out.values())
+             for k in ("dense", "sparse")}
+    missing = [k for k, n in {**svc, **{f"pull {k}": n for k, n in
+                                        pulls.items()}}.items() if n == 0]
+    if missing:
+        fail(f"[steady] branches not taken: {missing} (svc uploads {svc}, "
+             f"pulls {pulls})")
+    log(f"[steady] svc-matrix uploads {svc}; counts pulls {pulls}")
+    return out
+
+
+class Recorder:
+    """Keeps the first main-path inputs of each resident kernel (cloned
+    before the call), so the kernel checks run at the shapes and on the
+    data the steady phase gave them."""
+
+    def __init__(self):
+        self.active = False
+        self.calls = {}
+
+    def wrap(self, mod, name, key=None):
+        setattr(mod, name, _Recording(self, getattr(mod, name),
+                                      key or (lambda args: name)))
+
+
+class _Recording:
+    """Stands in for a kernel wrapper in its module while recording; the
+    wrapper's own `launches` count (which it bumps through the module
+    name) stays on the wrapper."""
+
+    def __init__(self, rec, real, key):
+        self.rec, self.real, self.key = rec, real, key
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+    def __call__(self, *args):
+        k = self.key(args)
+        if self.rec.active and k not in self.rec.calls:
+            self.rec.calls[k] = tuple(
+                [t.clone() for t in a] if isinstance(a, (list, tuple))
+                else a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args)
+        return self.real(*args)
+
+
+def _time_pair(kernel, plain, iters=50):
+    return time_ms(kernel, iters), time_ms(plain, max(5, iters // 10))
+
+
+def check_resident_kernels(rec):
+    """K5-K8 against their plain versions on the recorded main-path inputs;
+    times by CUDA events."""
+    from swarmkit_tpu_torch.ops import resident as rs
+
+    out = {}
+    # K5: the churn tick's delta rows, on a copy of the state
+    state, deltas = rec.calls["resident_delta_scatter"]
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    rs.resident_delta_scatter.real(got, deltas)
+    rs.resident_delta_scatter_plain(want, deltas)
+    err = max(int((a.int() - b.int()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    if err:
+        fail(f"resident_delta_scatter differs from its plain version ({err})")
+    ms, plain_ms = _time_pair(lambda: rs.resident_delta_scatter.real(
+        got, deltas), lambda: rs.resident_delta_scatter_plain(want, deltas))
+    D = deltas[0].shape[0]
+    row = sum(d[:1].numel() * d.element_size() for d in deltas[1:8]) \
+        + deltas[8].shape[0] * 4
+    b_ms, b_by = bound(D * (4 + 2 * row), 0)
+    N = state[0].shape[0]
+    log(f"[kernels] resident_delta_scatter (D={D}, N={N}): equal to plain; "
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.6f} ms "
+        f"({b_by})")
+    out["resident_delta_scatter"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, shape=f"D={D}, N={N}")
+
+    # K6: a grid tick's dense pull
+    counts, g, n, compact = rec.calls["counts_window"]
+    got = rs.counts_window.real(counts, g, n, compact)
+    want = rs.counts_window_plain(counts, g, n, compact)
+    err = int((got.int() - want.int()).abs().max())
+    if err or got.dtype != want.dtype:
+        fail("counts_window differs from its plain version")
+    ms, plain_ms = _time_pair(
+        lambda: rs.counts_window.real(counts, g, n, compact),
+        lambda: rs.counts_window_plain(counts, g, n, compact), 200)
+    lib_ms = time_ms(lambda: counts[:g, :n].to(
+        torch.int16 if compact else torch.int32).contiguous(), 200)
+    b_ms, b_by = bound(g * n * (4 + (2 if compact else 4)), 0)
+    log(f"[kernels] counts_window ({g}x{n} of {tuple(counts.shape)}, "
+        f"{got.dtype}): equal to plain; {ms:.4f} ms vs plain {plain_ms:.4f} "
+        f"ms, library {lib_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+    out["counts_window"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        shape=f"{g}x{n} of {tuple(counts.shape)}")
+
+    # K7: a node-heavy tick's sparse pull
+    counts, g, n, k, compact = rec.calls["sparse_counts"]
+    got = rs.sparse_counts.real(counts, g, n, k, compact)
+    want = rs.sparse_counts_plain(counts, g, n, k, compact)
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(got, want))
+    if err or got[1].dtype != want[1].dtype:
+        fail("sparse_counts differs from its plain version")
+    ms, plain_ms = _time_pair(
+        lambda: rs.sparse_counts.real(counts, g, n, k, compact),
+        lambda: rs.sparse_counts_plain(counts, g, n, k, compact), 200)
+    b_ms, b_by = bound(g * n * 4 + k * (4 + (2 if compact else 4)), g * n)
+    log(f"[kernels] sparse_counts (k={k} of {g}x{n} in "
+        f"{tuple(counts.shape)}): equal to plain; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+    out["sparse_counts"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, shape=f"k={k} of {g}x{n}")
+
+    # K8: the node-heavy cold re-upload's sparse scatter-add (and the zeros)
+    for key in ("svc_matrix_build zeros", "svc_matrix_build"):
+        idx, vals, rows, cols = rec.calls[key]
+        got = rs.svc_matrix_build.real(idx, vals, rows, cols)
+        want = rs.svc_matrix_build_plain(idx, vals, rows, cols)
+        err = int((got - want).abs().max())
+        if err:
+            fail(f"{key} differs from its plain version")
+        ms, plain_ms = _time_pair(
+            lambda: rs.svc_matrix_build.real(idx, vals, rows, cols),
+            lambda: rs.svc_matrix_build_plain(idx, vals, rows, cols), 200)
+        idx64 = idx.long()
+        lib_ms = time_ms(lambda: torch.zeros(
+            rows * cols, dtype=torch.int32, device=idx.device).scatter_add_(
+                0, idx64, vals), 200)
+        nnz = idx.shape[0]
+        b_ms, b_by = bound(rows * cols * 4 + nnz * 8, nnz)
+        log(f"[kernels] {key} (nnz={nnz}, {rows}x{cols}): equal to plain; "
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+            f"ms; bound {b_ms:.6f} ms ({b_by})")
+        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        shape=f"nnz={nnz}, {rows}x{cols}")
+    return out
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -433,7 +851,36 @@ SOURCES = {
                        "swarmkit_tpu/ops/placement.py:209"),
     "replay_commit": ("swarmkit_tpu_torch/csrc/replay_commit.cu",
                       "swarmkit_tpu/ops/raft_replay.py:34"),
+    "resident_delta_scatter": (
+        "swarmkit_tpu_torch/csrc/resident_delta_scatter.cu",
+        "swarmkit_tpu/ops/resident.py:84"),
+    "counts_window": ("swarmkit_tpu_torch/csrc/counts_window.cu",
+                      "swarmkit_tpu/ops/resident.py:162"),
+    "sparse_counts": ("swarmkit_tpu_torch/csrc/sparse_counts.cu",
+                      "swarmkit_tpu/ops/resident.py:170"),
+    "svc_matrix_build": ("swarmkit_tpu_torch/csrc/svc_matrix_build.cu",
+                         "swarmkit_tpu/ops/resident.py:150"),
 }
+# the kernels each main path must launch
+PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
+                            "tree_fill_step", "replay_commit"),
+         "steady": ("static_mask", "flat_fill_step", "tree_fill_step",
+                    "resident_delta_scatter", "counts_window",
+                    "sparse_counts", "svc_matrix_build")}
+
+
+def drive(path, wrappers, run) -> dict:
+    """Run one main path with every launch count set to 0 just before it;
+    fails unless each of the path's kernels launched."""
+    for w in wrappers.values():
+        w.launches = 0
+    run()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the {path} path: {missing}")
+    log(f"[launches] {path} path: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -445,6 +892,7 @@ def main() -> int:
     try:
         from swarmkit_tpu_torch.ops import placement as pl
         from swarmkit_tpu_torch.ops import raft_replay as rr
+        from swarmkit_tpu_torch.ops import resident as rs
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
     phase_build()
@@ -453,25 +901,35 @@ def main() -> int:
     wrappers = {"static_mask": pl.static_mask,
                 "flat_fill_step": pl.flat_fill_step,
                 "tree_fill_step": pl.tree_fill_step,
-                "replay_commit": rr.replay_commit}
-    for w in wrappers.values():
-        w.launches = 0
-    phase_waves(seed)
-    phase_flagship(seed, flag_p)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
-    log(f"[launches] main path: {launches}")
+                "replay_commit": rr.replay_commit,
+                "resident_delta_scatter": rs.resident_delta_scatter,
+                "counts_window": rs.counts_window,
+                "sparse_counts": rs.sparse_counts,
+                "svc_matrix_build": rs.svc_matrix_build}
+    by_path = {"waves+flagship": drive(
+        "waves+flagship", wrappers,
+        lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
+
+    rec = Recorder()
+    for name in ("resident_delta_scatter", "counts_window", "sparse_counts"):
+        rec.wrap(rs, name)
+    rec.wrap(rs, "svc_matrix_build",
+             key=lambda a: "svc_matrix_build" + (" zeros" if a[0].numel()
+                                                 == 0 else ""))
+    by_path["steady"] = drive("steady", wrappers,
+                              lambda: phase_steady(seed, rec))
+    results.update(check_resident_kernels(rec))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
+        per_path = {p: n[name] for p, n in by_path.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
+            launches=sum(per_path.values()), launches_by_path=per_path,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms"),
             equal_to_plain=r["max_abs_err"] == 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,11 @@
 """swarmkit_tpu_torch: the PyTorch/CUDA port of `swarmkit_tpu`.
 
-The port runs the scheduler's placement wave and the flagship cluster step
-on one NVIDIA H100. Host code (the object model, the encoder, the CPU
-oracles, the commit walk) is numpy/Python, as in the JAX package; the device
-work is four CUDA C++ kernels for sm_90a under `csrc/`, each with its plain
-PyTorch version beside its wrapper in `ops/`.
+The port runs the scheduler's placement wave, its steady tick on
+device-resident node state (`ops/resident.py`, `ops/pipeline.py`) and the
+flagship cluster step on one NVIDIA H100. Host code (the object model, the
+encoder, the CPU oracles, the commit walk) is numpy/Python, as in the JAX
+package; the device work is eight CUDA C++ kernels for sm_90a under
+`csrc/`, each with its plain PyTorch version beside its wrapper in `ops/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no device given and no CUDA device present they raise. A kernel wrapper

@@ -43,6 +43,19 @@ ENTRIES = {
     "replay_commit": {
         "skt_replay_commit": [_P] * 4 + [_I] * 2 + [_P],
     },
+    "resident_delta_scatter": {
+        "skt_resident_delta_scatter": [_P] * 17 + [_I] * 7 + [_P],
+    },
+    "counts_window": {
+        "skt_counts_window": [_P] * 2 + [_I] * 4 + [_P],
+    },
+    "sparse_counts": {
+        "skt_sparse_counts": [_P] * 4 + [_I] * 5 + [_P],
+        "skt_sparse_counts_tile": [],
+    },
+    "svc_matrix_build": {
+        "skt_svc_matrix_build": [_P] * 3 + [ctypes.c_longlong, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,11 @@ one to the wrapper's `launches` counter. Groups depend on each other through
 the node state, so the host launches one step per group, in order, on the
 current stream; nothing synchronises between them.
 
+`schedule_core` is that loop on tensors already on the device, folding into
+a caller-owned `FillState` in place: the one-shot entries below call it on
+clones of their inputs, and the device-resident tick (`ops/resident.py`) on
+the state it keeps on the card across ticks.
+
 Only the spread strategy (with topology, which the encoder turns into an
 extra outer spread level) is ported: `strategy=1` (binpack) raises.
 """
@@ -445,6 +450,34 @@ def _check_ranges(n_tasks, svc_idx, spread_rank, N: int, S: int) -> int:
     return max_nt
 
 
+def schedule_core(ready, node_val, node_plat, node_plugins, extra_mask,
+                  constraints, plat_req, req_plugins, vol_topo, n_tasks,
+                  svc_idx, need_res, max_replicas, penalty, has_ports,
+                  group_ports, spread_rank,
+                  state: FillState) -> torch.Tensor:
+    """The spread placement on tensors already on one device: K1, then one
+    K2 or K3 step per group, in order. Folds every group's counts into the
+    caller-owned `state` IN PLACE (the counterpart of the JAX resident
+    tick's donated state) and returns counts int32[G, N].
+
+    No host round trip: the value checks the kernels rely on (svc_idx in
+    [0, S), spread_rank in [0, N), N * max(n_tasks) < 2^31) are the
+    caller's, made on the host before the upload or by `_check_ranges`.
+    Which fill runs follows LMAX, the spread table's depth as given."""
+    G, N = extra_mask.shape
+    counts = torch.zeros((G, N), dtype=torch.int32, device=extra_mask.device)
+    if G and N:
+        mask = static_mask(ready, node_val, node_plat, node_plugins,
+                           constraints, plat_req, req_plugins, extra_mask,
+                           vol_topo)
+        tables = FillTables(mask, need_res, n_tasks, svc_idx, max_replicas,
+                            penalty, has_ports, group_ports, spread_rank)
+        step = tree_fill_step if spread_rank.shape[1] else flat_fill_step
+        for g in range(G):
+            step(tables, state, g, counts)
+    return counts
+
+
 def _schedule(args, strategy: int, device):
     if strategy == 1:
         raise NotImplementedError(BINPACK_TODO)
@@ -460,17 +493,11 @@ def _schedule(args, strategy: int, device):
                            svc_count0.shape[0])
     state = FillState(total0.clone(), svc_count0.clone(), avail_res.clone(),
                       port_used0.clone())
-    counts = torch.zeros((G, N), dtype=torch.int32, device=dev)
-    if G and N:
-        mask = static_mask(ready, node_val, node_plat, node_plugins,
-                           constraints, plat_req, req_plugins, extra_mask,
-                           vol_topo)
-        tables = FillTables(mask, need_res, n_tasks, svc_idx, max_replicas,
-                            penalty, has_ports, group_ports, spread_rank)
-        # LMAX is the problem's, as in the reference (placement.py:225)
-        step = tree_fill_step if spread_rank.shape[1] else flat_fill_step
-        for g in range(G):
-            step(tables, state, g, counts)
+    # LMAX is the problem's, as in the reference (placement.py:225)
+    counts = schedule_core(ready, node_val, node_plat, node_plugins,
+                           extra_mask, constraints, plat_req, req_plugins,
+                           vol_topo, n_tasks, svc_idx, need_res, max_replicas,
+                           penalty, has_ports, group_ports, spread_rank, state)
     return counts, state, max_nt
 
 

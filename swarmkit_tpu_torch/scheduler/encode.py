@@ -1499,3 +1499,67 @@ def encode(
                              max_platforms=max_platforms,
                              strategy=strategy, topology=topology)
     return enc.encode(node_infos, groups, now=now, volume_set=volume_set)
+
+
+def fold_problem(p_next: EncodedProblem, p_prev: EncodedProblem,
+                 counts_prev: np.ndarray) -> bool:
+    """Fold a still-uncommitted earlier wave's placements into a LATER
+    emitted problem, in the kernel's QUANTIZED domain.
+
+    A depth-D tick pipeline (`ops/pipeline.py`) encodes wave k before the
+    host has pulled/folded waves k-D+1..k-1, so p_next's node snapshot
+    is stale by those waves — but the device kernel is NOT: its in-scan
+    carry already folded them (quantized needs, exactly what the CPU
+    oracle's sequential-group fold does). Applying that same fold to the
+    emitted arrays makes the oracle fill and the slot materialization on
+    p_next bit-match the kernel again:
+
+        total0     += counts.sum(groups)
+        avail_res  -= counts^T @ need_res        (quantized, unclamped —
+                                                  mirrors the oracle's
+                                                  in-fill subtraction)
+        port_used0 |= group ports of placed nodes
+        svc_count0 += counts, joined by SERVICE ID (tick-local rows
+                      differ between problems)
+
+    Group-side vocab GROWTH between the encodes (new generic kinds, new
+    port ids — both append-only) is fine: the earlier wave's tables are
+    prefix-compatible and fold into the leading columns. Returns False
+    only when the node set changed — the caller must then drain to the
+    serial order. Fingerprints and the encoder's own arrays are
+    untouched: this mutates only the emitted problem's copies.
+    """
+    if (p_next.node_ids != p_prev.node_ids
+            or p_next.avail_res.shape[1] < p_prev.need_res.shape[1]
+            or p_next.port_used0.shape[1] < p_prev.group_ports.shape[1]):
+        return False
+    c = np.asarray(counts_prev, np.int64)
+    placed = c.sum(axis=0)
+    if not placed.any():
+        return True
+    p_next.total0 = (p_next.total0.astype(np.int64)
+                     + placed).astype(np.int32)
+    r_prev = p_prev.need_res.shape[1]
+    p_next.avail_res[:, :r_prev] = (
+        p_next.avail_res[:, :r_prev].astype(np.int64)
+        - c.T @ p_prev.need_res.astype(np.int64)).astype(np.int32)
+    for gi in np.flatnonzero(p_prev.has_ports):
+        pids = np.flatnonzero(p_prev.group_ports[gi])
+        if pids.size:
+            p_next.port_used0[np.ix_(c[gi] > 0, pids)] = True
+
+    acc: dict[str, np.ndarray] = {}
+    for gj, g in enumerate(p_prev.groups):
+        if c[gj].any():
+            cur = acc.get(g.service_id)
+            acc[g.service_id] = c[gj] if cur is None else cur + c[gj]
+    if acc:
+        next_row = {g.service_id: int(p_next.svc_idx[i])
+                    for i, g in enumerate(p_next.groups)}
+        for sid, vec in acc.items():
+            r = next_row.get(sid)
+            if r is not None:
+                p_next.svc_count0[r] = (
+                    p_next.svc_count0[r].astype(np.int64)
+                    + vec).astype(np.int32)
+    return True
