@@ -25,10 +25,14 @@ result line) if any phase fails:
                 fill, LMAX 3 padded to 4 levels). Every wave's counts equal
                 the CPU oracle on its completed problem, and the carry its
                 dispatch left on the card equals the kernels' expected
-                fold; all three svc-matrix upload branches and both pull
-                forms are taken;
-  7. resident kernels — K5-K8 against their plain versions on inputs
-                recorded from phase 6, times by CUDA events.
+                fold (service matrix included); all three svc-matrix upload
+                branches and both pull forms are taken;
+  7. resident kernels — K1-K3 against their plain versions on the first
+                steady wave of each configuration (the resident shapes:
+                nodes padded to 16,384 and 131,072, LMAX 3 padded to 4, the
+                group tables as row views), and K5-K8 on inputs recorded
+                from phase 6; times by CUDA events, and for K5-K8 also the
+                device time alone (their calls replayed from a CUDA graph).
 
 Each path (phases 4-5, and phase 6) runs with every launch count set to 0
 just before it, and fails unless each of its kernels launched.
@@ -444,7 +448,8 @@ def phase_flagship(seed, flag_p):
 
 
 # ------------------------------------------------------------ steady tick
-CARRY_FIELDS = ("ready", "node_val", "port_used", "avail_res", "total0")
+CARRY_FIELDS = ("ready", "node_val", "port_used", "avail_res", "total0",
+                "svc_mat")
 
 
 def tapped_resident(enc):
@@ -507,6 +512,16 @@ def check_wave(name, w, rp, p, counts):
     got = {"total0": st["total0"][:N], "avail_res": st["avail_res"][:N, :R],
            "port_used": st["port_used"][:N, :PV], "ready": st["ready"][:N],
            "node_val": st["node_val"][:N, :p.node_val.shape[1]]}
+    # the service matrix: the tick's (tick-local) svc_count0 rows plus the
+    # counts of their groups, in the resident rows svc_idx_persistent
+    # names; no count in a padded node column
+    svc = p.svc_count0.astype(np.int64)
+    np.add.at(svc, p.svc_idx, counts)
+    rows = dict(zip(p.svc_idx_persistent.tolist(), p.svc_idx.tolist()))
+    want["svc_mat"] = svc[list(rows.values())].astype(np.int32)
+    got["svc_mat"] = st["svc_mat"][list(rows), :N]
+    if st["svc_mat"][:, N:].any():
+        fail(f"[steady] {name} wave {w}: counts in padded svc_mat columns")
     for k in CARRY_FIELDS:
         if not np.array_equal(got[k], want[k]):
             fail(f"[steady] {name} wave {w}: carried {k} differs from the "
@@ -529,14 +544,15 @@ def finish_tasks(enc, infos, n_nodes):
     return done
 
 
-def steady_run(name, infos, make_groups, n_waves, churn_at, invalidate_at,
-               depth=3):
+def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
+               invalidate_at, depth=3):
     """A cold tick (ResidentPlacement.schedule, full upload), then n_waves
     steady waves through TickPipeline(depth), then a flush, on a tracked
     encoder (the zero-scan steady path the scheduler takes). Task
     completions before wave churn_at ship delta rows; invalidate() before
     wave invalidate_at forces a cold re-upload. Both drain the pipe, so
-    they come after the steady stretch."""
+    they come after the steady stretch. The recorder keeps the first
+    steady wave's placement inputs under this configuration's name."""
     from swarmkit_tpu_torch.ops.pipeline import TickPipeline
     from swarmkit_tpu_torch.scheduler import batch
     from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder
@@ -573,6 +589,7 @@ def steady_run(name, infos, make_groups, n_waves, churn_at, invalidate_at,
         f"(host clock)")
 
     pipe = TickPipeline(enc, rp, commit, depth=depth)
+    rec.config = name
     t_check = 0.0
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -599,6 +616,7 @@ def steady_run(name, infos, make_groups, n_waves, churn_at, invalidate_at,
             f"{t['pull_s']:.4f} + fold {t['fold_s']:.4f} + commit "
             f"{t['commit_s']:.4f}; serial {t['serial_fallback']} "
             f"(host clock)")
+    rec.config = None
     done = pipe.flush()
     for t in pipe.timings[-len(done):]:
         log(f"[steady] {name} flush: wall {t['wall_s']:.4f} s = pull "
@@ -640,7 +658,7 @@ def flagship_waves(n_waves, seed):
     return infos, out
 
 
-def flagship_ticks(seed, n_ticks):
+def flagship_ticks(seed, n_ticks, rec):
     """n_ticks serial resident ticks of the flagship cluster (tree fill,
     LMAX 3 padded to 4 levels, host ports, generic resources)."""
     from swarmkit_tpu_torch.scheduler import batch
@@ -651,6 +669,7 @@ def flagship_ticks(seed, n_ticks):
     enc = IncrementalEncoder(tracked=True)
     rp = tapped_resident(enc)
     for w, groups in enumerate(waves):
+        rec.config = "flagship tree" if w else None
         t0 = time.perf_counter()
         p = enc.encode(infos, groups)
         t1 = time.perf_counter()
@@ -671,6 +690,7 @@ def flagship_ticks(seed, n_ticks):
             f"to the CPU oracle, carry equal to the expected fold; encode "
             f"{t1 - t0:.4f} + device (upload, fill, pull) {t2 - t1:.4f} + "
             f"commit {t4 - t3:.4f} s (host clock)")
+    rec.config = None
     return rp
 
 
@@ -680,15 +700,16 @@ def phase_steady(seed, recorder):
     out = {}
     recorder.active = True
     out["grid"] = steady_run(
-        "grid", grid_nodes(random.Random(seed + 1), N_NODES),
+        "grid", recorder, grid_nodes(random.Random(seed + 1), N_NODES),
         lambda w: grid_groups(100 + w, N_GROUPS, TASKS_PER_GROUP),
         STEADY_WAVES, churn_at=7,
         invalidate_at=8)
     out["node-heavy"] = steady_run(
-        "node-heavy", grid_nodes(random.Random(seed + 2), HEAVY_NODES),
+        "node-heavy", recorder,
+        grid_nodes(random.Random(seed + 2), HEAVY_NODES),
         lambda w: grid_groups(200 + w, N_GROUPS, HEAVY_PER_SERVICE),
         STEADY_WAVES, churn_at=7, invalidate_at=8)
-    out["flagship tree"] = flagship_ticks(seed, FLAGSHIP_TICKS)
+    out["flagship tree"] = flagship_ticks(seed, FLAGSHIP_TICKS, recorder)
     recorder.active = False
     svc = {k: sum(rp.uploads_svc[k] for rp in out.values())
            for k in ("zeros", "sparse", "dense")}
@@ -704,12 +725,14 @@ def phase_steady(seed, recorder):
 
 
 class Recorder:
-    """Keeps the first main-path inputs of each resident kernel (cloned
-    before the call), so the kernel checks run at the shapes and on the
-    data the steady phase gave them."""
+    """Keeps the first main-path inputs of each recorded kernel under its
+    key (cloned before the call, in stream order), so the kernel checks
+    run at the shapes and on the data the steady phase gave them. A key
+    of None records nothing."""
 
     def __init__(self):
         self.active = False
+        self.config = None      # the steady configuration past its cold tick
         self.calls = {}
 
     def wrap(self, mod, name, key=None):
@@ -735,16 +758,102 @@ class _Recording:
 
     def __call__(self, *args):
         k = self.key(args)
-        if self.rec.active and k not in self.rec.calls:
-            self.rec.calls[k] = tuple(
-                [t.clone() for t in a] if isinstance(a, (list, tuple))
-                else a.clone() if isinstance(a, torch.Tensor) else a
-                for a in args)
+        if self.rec.active and k is not None and k not in self.rec.calls:
+            self.rec.calls[k] = _clone(args)
         return self.real(*args)
+
+
+def _clone(a):
+    """A copy of a's tensors, nested in lists, tuples and named tuples."""
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*map(_clone, a))
+    if isinstance(a, (list, tuple)):
+        return type(a)(map(_clone, a))
+    return a
 
 
 def _time_pair(kernel, plain, iters=50):
     return time_ms(kernel, iters), time_ms(plain, max(5, iters // 10))
+
+
+def graph_ms(fn, iters=20, reps=10) -> float:
+    """Mean device ms per call of fn: `iters` calls captured in one CUDA
+    graph and replayed, so the host cost of a call (argument checks,
+    ctypes) is paid once at capture and not per replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+# the fill each steady configuration runs
+STEADY_FILLS = {"grid": "flat_fill_step", "node-heavy": "flat_fill_step",
+                "flagship tree": "tree_fill_step"}
+
+
+def check_steady_placement(rec):
+    """K1-K3 against their plain versions on the first steady wave's
+    inputs of each configuration: the resident shapes (nodes padded to the
+    bucket, LMAX 3 padded to 4 levels, group tables as row views). Each
+    fill runs the wave's remaining groups from the recorded carry; counts
+    and carry must be equal."""
+    from swarmkit_tpu_torch.ops import placement as pl
+
+    for config, step in STEADY_FILLS.items():
+        keys = (f"static_mask {config}", f"{step} {config}")
+        missing = [k for k in keys if k not in rec.calls]
+        if missing:
+            fail(f"[steady] no steady-wave call recorded: {missing}")
+        args = rec.calls[keys[0]]
+        if not torch.equal(pl.static_mask.real(*args),
+                           pl.static_mask_plain(*args)):
+            fail(f"static_mask differs from its plain version on the "
+                 f"{config} steady wave")
+        tables, state, g0, out = rec.calls[keys[1]]
+        G, N = out.shape
+        L = tables.spread_rank.shape[1]
+        if config == "flagship tree" and L != 4:
+            fail(f"[steady] flagship tree: {L} spread levels on the card, "
+                 "expected LMAX 3 padded to 4")
+
+        def run(fn):
+            st, o = _clone(state), out.clone()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for g in range(g0, G):
+                fn(tables, st, g, o)
+            e1.record()
+            e1.synchronize()
+            return (o, *st), e0.elapsed_time(e1) / (G - g0)
+
+        got, _ = run(getattr(pl, step).real)
+        want, plain_ms = run(getattr(pl, f"{step}_plain"))
+        for a, b, what in zip(got, want, ("counts",) + state._fields):
+            if not torch.equal(a, b):
+                fail(f"{step} differs from its plain version on the "
+                     f"{config} steady wave ({what})")
+        ms = min(run(getattr(pl, step).real)[1] for _ in range(3))
+        log(f"[kernels] static_mask and {step} on the {config} steady wave "
+            f"(G={G}, N={N}, LMAX {L}, groups {g0}-{G - 1}): equal to "
+            f"plain; {step} {ms:.4f} ms/launch vs plain {plain_ms:.4f} ms")
 
 
 def check_resident_kernels(rec):
@@ -809,12 +918,30 @@ def check_resident_kernels(rec):
         lambda: rs.sparse_counts.real(counts, g, n, k, compact),
         lambda: rs.sparse_counts_plain(counts, g, n, k, compact), 200)
     b_ms, b_by = bound(g * n * 4 + k * (4 + (2 if compact else 4)), g * n)
+
+    def library():
+        flat = counts[:g, :n].reshape(-1)
+        nz = torch.nonzero_static(flat, size=k, fill_value=0).reshape(-1)
+        return nz, flat[nz]
+    try:
+        lib_idx, lib_val = library()
+        same = (torch.equal(lib_idx.int(), got[0])
+                and torch.equal(lib_val.int(), got[1].int()))
+    except (RuntimeError, NotImplementedError) as e:
+        same, lib_idx = False, e
+    lib_ms = time_ms(library, 200) if same else None
+    if not same:
+        log(f"[kernels] torch.nonzero_static + gather does not compute "
+            f"sparse_counts' function here ({lib_idx!r:.200}): no library "
+            "time")
     log(f"[kernels] sparse_counts (k={k} of {g}x{n} in "
         f"{tuple(counts.shape)}): equal to plain; {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} ms; bound "
+        f"{b_ms:.6f} ms ({b_by})")
     out["sparse_counts"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, shape=f"k={k} of {g}x{n}")
+        bound_by=b_by, library_ms=lib_ms, shape=f"k={k} of {g}x{n}")
 
     # K8: the node-heavy cold re-upload's sparse scatter-add (and the zeros)
     for key in ("svc_matrix_build zeros", "svc_matrix_build"):
@@ -839,6 +966,26 @@ def check_resident_kernels(rec):
         out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                         shape=f"nnz={nnz}, {rows}x{cols}")
+
+    # the device time alone, without each call's host cost
+    state, deltas = rec.calls["resident_delta_scatter"]
+    state = [t.clone() for t in state]
+    calls = {
+        "resident_delta_scatter": lambda: rs.resident_delta_scatter.real(
+            state, deltas),
+        "counts_window": lambda: rs.counts_window.real(
+            *rec.calls["counts_window"]),
+        "sparse_counts": lambda: rs.sparse_counts.real(
+            *rec.calls["sparse_counts"]),
+        "svc_matrix_build zeros": lambda: rs.svc_matrix_build.real(
+            *rec.calls["svc_matrix_build zeros"]),
+        "svc_matrix_build": lambda: rs.svc_matrix_build.real(
+            *rec.calls["svc_matrix_build"])}
+    for key, fn in calls.items():
+        out[key]["graph_ms"] = graph_ms(fn)
+        log(f"[kernels] {key}: {out[key]['graph_ms']:.5f} ms per call "
+            f"replayed from a CUDA graph, against {out[key]['ms']:.4f} ms "
+            f"per call issued from the host")
     return out
 
 
@@ -911,6 +1058,9 @@ def main() -> int:
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
 
     rec = Recorder()
+    for name in ("static_mask", "flat_fill_step", "tree_fill_step"):
+        rec.wrap(pl, name, key=lambda a, name=name: (
+            f"{name} {rec.config}" if rec.config else None))
     for name in ("resident_delta_scatter", "counts_window", "sparse_counts"):
         rec.wrap(rs, name)
     rec.wrap(rs, "svc_matrix_build",
@@ -918,6 +1068,7 @@ def main() -> int:
                                                  == 0 else ""))
     by_path["steady"] = drive("steady", wrappers,
                               lambda: phase_steady(seed, rec))
+    check_steady_placement(rec)
     results.update(check_resident_kernels(rec))
 
     kernels = []
@@ -929,7 +1080,7 @@ def main() -> int:
             launches=sum(per_path.values()), launches_by_path=per_path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r.get("library_ms"),
+            library_ms=r.get("library_ms"), graph_ms=r.get("graph_ms"),
             equal_to_plain=r["max_abs_err"] == 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -322,7 +322,7 @@ class ResidentPlacement:
         self.uploads_full = 0       # observability
         self.uploads_delta_rows = 0
         self.uploads_group_tables = 0
-        self.uploads_h2d_bytes = 0  # delta + group-table bytes shipped
+        self.uploads_h2d_bytes = 0  # bytes shipped to the device
         # which svc-matrix branch each full upload took, and which form each
         # counts pull took
         self.uploads_svc = {"zeros": 0, "sparse": 0, "dense": 0}
@@ -514,16 +514,7 @@ class ResidentPlacement:
             ]
             self.uploads_delta_rows += int(dirty.size)
         else:
-            # the reference ships (and counts) one placeholder row set when
-            # there are no deltas; it is counted here alike so the upload
-            # counters of the two packages stay comparable, and not shipped
-            deltas = [np.zeros(1, np.int32), np.zeros(1, bool),
-                      np.zeros((1, kp), np.int32),
-                      np.zeros((1, 2), np.int32),
-                      np.zeros((1, plp), bool),
-                      np.zeros((1, pvp), bool),
-                      np.zeros((1, rp), np.int32),
-                      np.zeros(1, np.int32), np.zeros((sp, 1), np.int32)]
+            deltas = []
 
         # the builder-stamped flags replace O(G*N) scans (None = unknown)
         use_penalty = (bool(p.penalty_nonzero)

@@ -3,7 +3,8 @@
 The port's `ResidentPlacement` runs on `device="cpu"` (every kernel is its
 plain PyTorch version) and the JAX package's on its CPU backend, over
 clusters built from the same seed in either package. Per tick, the counts,
-all eight carried state arrays and the four upload counters must be equal,
+all eight carried state arrays and the four upload counters (the H2D bytes
+as the JAX package counts them, see `TorchResident`) must be equal,
 and the counts must equal the CPU oracle: every output is integer or bool,
 so the tolerance is exact equality. The plain versions of kernels K5-K8 are
 held against the JAX functions they replace on the same numpy inputs; the
@@ -135,15 +136,38 @@ def service_group(api, svc, version, n_tasks):
 
 
 # -------------------------------------------------------------- helpers
+class TorchResident(torch_resident.ResidentPlacement):
+    """The port's ResidentPlacement, tallying the placeholder delta set
+    that the JAX package ships, and counts in `uploads_h2d_bytes`, on every
+    tick without deltas (its jitted tick takes the arrays either way). The
+    port ships nothing then."""
+
+    placeholder_bytes = 0
+
+    def schedule_async(self, p):
+        rows = self.uploads_delta_rows
+        pending = super().schedule_async(p)
+        if self.uploads_delta_rows == rows:
+            # d_idx, d_ready, d_val, d_plat, d_plug, d_port, d_avail,
+            # d_total: one row each; d_svc: one column
+            _np, kp, plp, pvp, rp, sp = self._padded_dims(p)
+            self.placeholder_bytes += (4 + 1 + 4 * kp + 8 + plp + pvp
+                                       + 4 * rp + 4 + 4 * sp)
+        return pending
+
+
 def resident_of(side, enc):
     _api, mod, _batch = SIDES[side]
     if side == "torch":
-        return mod.ResidentPlacement(enc, device="cpu")
+        return TorchResident(enc, device="cpu")
     return mod.ResidentPlacement(enc)
 
 
 def counters(rp) -> tuple:
-    return tuple(getattr(rp, k) for k in COUNTERS)
+    """The four upload counters, the H2D bytes counted as the JAX package
+    counts them."""
+    full, rows, tables, h2d = (getattr(rp, k) for k in COUNTERS)
+    return full, rows, tables, h2d + getattr(rp, "placeholder_bytes", 0)
 
 
 def expected_device_fold(p, counts):
