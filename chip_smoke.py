@@ -4,21 +4,33 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the eight kernels from csrc/, all at once;
-  3. kernels  — K1-K4 against their plain PyTorch versions on the card, at
-                the main path's shapes (10,000 nodes, 20 groups; a
-                5 x 2^20 raft log), exactly equal; times by CUDA events;
+  2. build    — nvcc builds the nine kernels from csrc/, all at once, and
+                cc the native commit walk (native/_hostops.c); the run
+                fails unless the native module loaded;
+  3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
+                card, at the main path's shapes (10,000 nodes, 20 groups,
+                K9 on the grid problem encoded for binpack; a 5 x 2^20 raft
+                log), exactly equal; times by CUDA events;
   4. waves    — three scheduler waves of 100,000 tasks (20 services x 5,000)
                 onto 10,000 nodes: encode -> device_schedule_encoded ->
-                materialize_orders -> apply_wave, each wave's counts equal
-                to the CPU oracle's;
+                materialize_orders -> apply_wave (the native walk), each
+                wave's counts equal to the CPU oracle's;
   5. flagship — entry()'s cluster step at 10,000 nodes x 20 groups x 5,000
                 tasks over a 2^20-entry, 5-manager log: counts and totals
                 equal to the CPU oracle, commit index equal to a numpy tally;
-  6. steady   — the device-resident tick (ResidentPlacement) with
-                TickPipeline(depth=3): a cold tick and 8 pipelined waves on
-                the grid (10,000 nodes, 20 x 5,000 tasks a wave: dense
-                counts pulls) and on a node-heavy cluster (100,000 nodes,
+  6. binpack  — phases 4 and 5 under the binpack strategy: three grid waves
+                encoded for binpack, and cluster_step(strategy=1) on the
+                flagship cluster encoded for binpack, against the oracle;
+  7. native walk — one grid wave's apply_wave through the C walk and
+                through the pure-Python walk on two copies of the nodes:
+                every NodeInfo equal, field for field; both host times;
+  8. steady   — the device-resident tick (ResidentPlacement) with
+                TickPipeline(depth=3, async_commit=True): a cold tick and 8
+                pipelined waves on the grid (10,000 nodes, 20 x 5,000 tasks
+                a wave: dense counts pulls), the same grid run again with
+                the synchronous commit (equal counts wave for wave, equal
+                NodeInfos after the flush), a binpack grid run (K9 in the
+                resident tick), and a node-heavy cluster (100,000 nodes,
                 20 x 500 tasks a wave: sparse pulls), with task completions
                 (delta rows) and one invalidate() (a cold re-upload) in
                 each; then 3 resident ticks of the flagship cluster (tree
@@ -27,15 +39,16 @@ result line) if any phase fails:
                 dispatch left on the card equals the kernels' expected
                 fold (service matrix included); all three svc-matrix upload
                 branches and both pull forms are taken;
-  7. resident kernels — K1-K3 against their plain versions on the first
-                steady wave of each configuration (the resident shapes:
-                nodes padded to 16,384 and 131,072, LMAX 3 padded to 4, the
-                group tables as row views), and K5-K8 on inputs recorded
-                from phase 6; times by CUDA events, and for K5-K8 also the
-                device time alone (their calls replayed from a CUDA graph).
+  9. resident kernels — K1-K3 and K9 against their plain versions on the
+                first steady wave of each configuration (the resident
+                shapes: nodes padded to 16,384 and 131,072, LMAX 3 padded to
+                4, the group tables as row views), and K5-K8 on inputs
+                recorded from phase 8; times by CUDA events, and for K5-K8
+                also the device time alone (their calls replayed from a
+                CUDA graph).
 
-Each path (phases 4-5, and phase 6) runs with every launch count set to 0
-just before it, and fails unless each of its kernels launched.
+Each path (phases 4-5, phase 6, and phase 8) runs with every launch count
+set to 0 just before it, and fails unless each of its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
 line of its output is {"ok": true, "device": {...}}.
@@ -43,6 +56,7 @@ line of its output is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import random
 import subprocess
@@ -198,17 +212,30 @@ def phase_device() -> tuple[str, int]:
 
 
 def phase_build():
+    import threading
+
+    from swarmkit_tpu_torch import native
     from swarmkit_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
+    # cc builds the native walk while nvcc builds the kernels
+    box = {}
+    cc = threading.Thread(target=lambda: box.update(
+        mod=native.load(), s=time.perf_counter() - t0))
+    cc.start()
     built = _kernels.build()
     for name, (sec, out) in built.items():
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         log(f"[build] {name}: {sec:.2f} s; {'; '.join(regs)}")
     for name in _kernels.ENTRIES:
         _kernels.lib(name)
-    log(f"[build] {len(built)} libraries built in "
-        f"{time.perf_counter() - t0:.2f} s (wall)")
+    cc.join()
+    if box.get("mod") is None:
+        fail("the native commit walk (native/_hostops.c) did not build or "
+             "load")
+    log(f"[build] {len(built)} kernel libraries built in "
+        f"{time.perf_counter() - t0:.2f} s (wall); native walk "
+        f"{native.LIB.name} loaded after {box['s']:.2f} s")
 
 
 def _tables_and_state(args, mask):
@@ -266,7 +293,8 @@ def check_mask(name, p_args, dims):
                 bound_by=b_by), got
 
 
-def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax):
+def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
+               ops_per_node=None):
     tables, fresh_state = _tables_and_state(p_args, mask)
     G, N, R, PV = dims["G"], dims["N"], dims["R"], dims["PV"]
     s_k, s_p = fresh_state(), fresh_state()
@@ -303,9 +331,11 @@ def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax):
     # read and write the node state (totals, service row, resources,
     # ports), write the counts row. Operations: per node, the caps
     # (2 per resource and port column, ~6 more), 3 per spread level for
-    # the branch sums, and the leaf's 31-step bisect at 4 per step
+    # the branch sums, and the leaf's 31-step bisect at 4 per step (the
+    # water fill) or `ops_per_node` more (binpack)
     nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
-    nops = N * (2 * R + 2 * PV + 6 + 3 * lmax + 31 * 4)
+    extra = 3 * lmax + 31 * 4 if ops_per_node is None else ops_per_node
+    nops = N * (2 * R + 2 * PV + 6 + extra)
     b_ms, b_by = bound(nbytes, nops)
     log(f"[kernels] {kernel_step.__name__} on {name} (N={N}, LMAX={lmax}): "
         f"equal to plain over {G} steps; {ms:.4f} ms/launch vs plain "
@@ -346,11 +376,14 @@ def phase_kernels(seed):
     dev = resolve_device()          # the card
     t0 = time.perf_counter()
     grid_p = encode(grid_nodes(random.Random(seed), N_NODES), grid_groups(0))
+    grid_b = encode(grid_nodes(random.Random(seed), N_NODES), grid_groups(0),
+                    strategy="binpack")
     flag_p = encode(*example_cluster(N_NODES, N_GROUPS, TASKS_PER_GROUP,
                                      seed))
-    log(f"[kernels] encoded the grid and flagship problems in "
-        f"{time.perf_counter() - t0:.1f} s (host)")
+    log(f"[kernels] encoded the grid (spread, binpack) and flagship "
+        f"problems in {time.perf_counter() - t0:.1f} s (host)")
     grid_a = kernel_args_from_arrays(kernel_args(grid_p), dev)
+    bin_a = kernel_args_from_arrays(kernel_args(grid_b), dev)
     flag_a = kernel_args_from_arrays(kernel_args(flag_p), dev)
     gd, fd = check_kernel_args(grid_a), check_kernel_args(flag_a)
     if gd["L"] != 0 or fd["L"] == 0:
@@ -369,6 +402,18 @@ def phase_kernels(seed):
     results["tree_fill_step"] = check_fill(
         "flagship", flag_a, fd, flag_mask, pl.tree_fill_step,
         pl.tree_fill_step_plain, fd["L"])
+    # K9 on the binpack-encoded grid (the mask is the grid's: binpack only
+    # changes the fill). Operations the function needs per node beyond the
+    # caps: one lexicographic compare of its 4-key against the boundary's
+    # (8), the prefix add (1), the clip (2); no sort is needed
+    bin_mask = pl.static_mask(*[bin_a[i] for i in (0, 1, 2, 3, 5, 6, 7, 4,
+                                                   20)])
+    if not torch.equal(bin_mask, grid_mask):
+        fail("the binpack-encoded grid's mask differs from the grid's")
+    results["binpack_fill_step"] = check_fill(
+        "grid binpack", bin_a, check_kernel_args(bin_a), bin_mask,
+        pl.binpack_fill_step, pl.binpack_fill_step_plain, 0,
+        ops_per_node=11)
     rng = np.random.RandomState(seed)
     acks = torch.from_numpy(rng.rand(N_MANAGERS, LOG_LEN) < 0.9999).to(dev)
     results["replay_commit"] = check_replay(
@@ -377,12 +422,14 @@ def phase_kernels(seed):
     return results, flag_p
 
 
-def phase_waves(seed):
+def phase_waves(seed, strategy="spread"):
+    """Three one-shot grid waves; the commit walk is the native one."""
     from swarmkit_tpu_torch.scheduler import batch
     from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder
 
+    tag = "waves" if strategy == "spread" else strategy
     infos = grid_nodes(random.Random(seed), N_NODES)
-    enc = IncrementalEncoder()
+    enc = IncrementalEncoder(strategy=strategy)
     for w in range(N_WAVES):
         groups = grid_groups(w)
         t0 = time.perf_counter()
@@ -395,21 +442,104 @@ def phase_waves(seed):
         t3 = time.perf_counter()
         oracle = batch.cpu_schedule_encoded(p)
         t4 = time.perf_counter()
-        if not np.array_equal(counts, oracle):
+        if p.strategy != strategy or not np.array_equal(counts, oracle):
             bad = np.argwhere(counts != oracle)[0]
-            fail(f"wave {w}: counts differ from the CPU oracle at "
+            fail(f"[{tag}] wave {w}: counts differ from the CPU oracle at "
                  f"(group, node) {tuple(bad)}")
         added = batch.apply_wave(p.row_infos, p.groups, orders)
         t5 = time.perf_counter()
         if added != int(oracle.sum()):
-            fail(f"wave {w}: applied {added} tasks, oracle placed "
+            fail(f"[{tag}] wave {w}: applied {added} tasks, oracle placed "
                  f"{int(oracle.sum())}")
         n_tasks = sum(len(g.tasks) for g in groups)
-        log(f"[waves] wave {w}: {added}/{n_tasks} tasks placed on "
+        log(f"[{tag}] wave {w}: {added}/{n_tasks} tasks placed on "
             f"{N_NODES} nodes, equal to the CPU oracle; wave "
             f"{(t3 - t0) + (t5 - t4):.3f} s = encode {t1 - t0:.3f} + device "
             f"{t2 - t1:.3f} + materialize {t3 - t2:.3f} + apply "
             f"{t5 - t4:.3f} (host clock); oracle {t4 - t3:.2f} s")
+
+
+def phase_binpack_flagship(seed):
+    """cluster_step(strategy=1) on the flagship cluster encoded for
+    binpack, against the CPU oracle and a numpy tally."""
+    from swarmkit_tpu_torch.convert import kernel_args_from_arrays
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.models.cluster_step import (
+        cluster_step,
+        example_cluster,
+        example_inputs,
+    )
+    from swarmkit_tpu_torch.scheduler import batch
+    from swarmkit_tpu_torch.scheduler.encode import encode, kernel_args
+
+    dev = resolve_device()
+    p = encode(*example_cluster(N_NODES, N_GROUPS, TASKS_PER_GROUP, seed),
+               strategy="binpack")
+    acks, quorum = example_inputs(n_nodes=1, n_groups=1, tasks_per_group=1,
+                                  n_managers=N_MANAGERS, log_len=LOG_LEN,
+                                  seed=seed)[:2]
+    inputs = (acks, quorum) + kernel_args_from_arrays(kernel_args(p), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts, totals, commit = cluster_step(*inputs, strategy=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, totals = counts.cpu().numpy(), totals.cpu().numpy()
+    oracle = batch.cpu_schedule_encoded(p)
+    if p.strategy != "binpack" or not np.array_equal(counts, oracle):
+        fail("binpack flagship counts differ from the CPU oracle")
+    if not np.array_equal(totals, p.total0 + oracle.sum(axis=0)):
+        fail("binpack flagship totals differ from the CPU oracle")
+    a = acks.cpu().numpy()
+    ok = a.sum(axis=0) >= int(quorum)
+    want = a.shape[1] if ok.all() else int(np.argmin(ok))
+    if int(commit) != want:
+        fail(f"binpack flagship commit index {int(commit)} != numpy tally "
+             f"{want}")
+    log(f"[binpack] flagship step: {int(counts.sum())} of "
+        f"{N_GROUPS * TASKS_PER_GROUP} tasks placed on {N_NODES} nodes "
+        f"({int((counts.sum(axis=0) > 0).sum())} nodes used), equal to the "
+        f"CPU oracle; commit index {int(commit)} equal to a numpy tally; "
+        f"step {dt:.3f} s (host clock, synchronised)")
+
+
+def info_state(info) -> tuple:
+    """What the commit walk writes on a NodeInfo."""
+    ar = info.available_resources
+    return (info.mutations, info.active_tasks_count,
+            dict(info.active_tasks_count_by_service), ar.nano_cpus,
+            ar.memory_bytes, dict(ar.generic), sorted(info.used_host_ports),
+            sorted(info.tasks))
+
+
+def phase_native_walk(seed):
+    """One grid wave booked by the C walk and by the pure-Python walk onto
+    two copies of the same nodes: every NodeInfo equal, field for field."""
+    from swarmkit_tpu_torch.scheduler import batch
+    from swarmkit_tpu_torch.scheduler.encode import encode
+
+    infos_c = grid_nodes(random.Random(seed + 5), N_NODES)
+    infos_py = grid_nodes(random.Random(seed + 5), N_NODES)
+    p = encode(infos_c, grid_groups(50))
+    counts = batch.device_schedule_encoded(p)
+    orders = batch.materialize_orders(p, counts)
+    by_id = {i.node.id: i for i in infos_py}
+    rows_py = [by_id[nid] for nid in p.node_ids]
+    t0 = time.perf_counter()
+    n_c = batch.apply_wave(p.row_infos, p.groups, orders, native_walk=True)
+    t1 = time.perf_counter()
+    n_py = batch.apply_wave(rows_py, p.groups, orders, native_walk=False)
+    t2 = time.perf_counter()
+    if not n_c == n_py == int(counts.sum()):
+        fail(f"[native] walks added {n_c} and {n_py} of {int(counts.sum())}")
+    for a, b in zip(infos_c, infos_py):
+        if info_state(a) != info_state(b):
+            fail(f"[native] node {a.node.id}: the C walk and the Python walk "
+                 "disagree")
+    log(f"[native] one grid wave ({n_c} tasks onto {N_NODES} nodes): every "
+        f"NodeInfo equal between the walks; apply_wave {t1 - t0:.4f} s "
+        f"native, {t2 - t1:.4f} s pure Python (host clock)")
+    return t1 - t0, t2 - t1
 
 
 def phase_flagship(seed, flag_p):
@@ -545,20 +675,29 @@ def finish_tasks(enc, infos, n_nodes):
 
 
 def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
-               invalidate_at, depth=3):
+               invalidate_at, depth=3, async_commit=True, strategy="spread",
+               record=True):
     """A cold tick (ResidentPlacement.schedule, full upload), then n_waves
-    steady waves through TickPipeline(depth), then a flush, on a tracked
-    encoder (the zero-scan steady path the scheduler takes). Task
-    completions before wave churn_at ship delta rows; invalidate() before
-    wave invalidate_at forces a cold re-upload. Both drain the pipe, so
-    they come after the steady stretch. The recorder keeps the first
-    steady wave's placement inputs under this configuration's name."""
+    steady waves through TickPipeline(depth, async_commit), then a flush,
+    on a tracked encoder (the zero-scan steady path the scheduler takes).
+    Task completions before wave churn_at ship delta rows; invalidate()
+    before wave invalidate_at forces a cold re-upload. Both drain the pipe,
+    so they come after the steady stretch. Every completed wave is checked
+    after the flush, outside the timed stretch (the carry taps wait in
+    pinned memory). The recorder keeps the first steady wave's placement
+    inputs under this configuration's name when `record`. Returns the
+    resident object and each wave's counts."""
     from swarmkit_tpu_torch.ops.pipeline import TickPipeline
     from swarmkit_tpu_torch.scheduler import batch
     from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder
 
     t0 = time.perf_counter()
-    waves = [make_groups(w) for w in range(n_waves + 1)]
+    gc.disable()            # set-up: a million new objects, no garbage
+    try:
+        waves = [make_groups(w) for w in range(n_waves + 1)]
+    finally:
+        gc.enable()
+    gc.collect()            # the collection the pause deferred, in set-up
     log(f"[steady] {name}: built {n_waves + 1} waves of pending tasks in "
         f"{time.perf_counter() - t0:.1f} s (host, not timed below)")
     by_node = {i.node.id: i for i in infos}
@@ -568,76 +707,86 @@ def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
         added = batch.apply_wave([by_node[nid] for nid in p.node_ids],
                                  p.groups, orders)
         if added != int(counts.sum()):
-            fail(f"[steady] {name}: committed {added} of "
-                 f"{int(counts.sum())} placements")
+            raise RuntimeError(f"[steady] {name}: committed {added} of "
+                               f"{int(counts.sum())} placements")
 
-    enc = IncrementalEncoder(tracked=True)
+    enc = IncrementalEncoder(tracked=True, strategy=strategy)
     rp = tapped_resident(enc)
     t0 = time.perf_counter()
     p = enc.encode(infos, waves[0])
     t1 = time.perf_counter()
     counts = rp.schedule(p)
     t2 = time.perf_counter()
-    placed = [check_wave(name, 0, rp, p, counts)]
-    t3 = time.perf_counter()
+    done = [(p, counts)]
     commit(p, counts)
     enc.apply_counts(p, counts)
     rp.after_apply(p, counts)
-    t4 = time.perf_counter()
+    t3 = time.perf_counter()
     log(f"[steady] {name} cold tick: encode {t1 - t0:.4f} + device "
-        f"(upload, fill, pull) {t2 - t1:.4f} + commit {t4 - t3:.4f} s "
+        f"(upload, fill, pull) {t2 - t1:.4f} + commit {t3 - t2:.4f} s "
         f"(host clock)")
 
-    pipe = TickPipeline(enc, rp, commit, depth=depth)
-    rec.config = name
-    t_check = 0.0
+    pipe = TickPipeline(enc, rp, commit, depth=depth,
+                        async_commit=async_commit)
+    rec.config = name if record else None
     torch.cuda.synchronize()
     t_start = time.perf_counter()
-
-    def completed(done):
-        nonlocal t_check
-        t0 = time.perf_counter()
-        for p, counts in done:
-            placed.append(check_wave(name, len(placed), rp, p, counts))
-        t_check += time.perf_counter() - t0
-
-    for w in range(1, n_waves + 1):
-        if w == churn_at:
-            n = finish_tasks(enc, infos, 32)
-            log(f"[steady] {name}: {n} tasks finished before wave {w}")
-        if w == invalidate_at:
-            rp.invalidate()
-            log(f"[steady] {name}: invalidate() before wave {w}")
-        completed(pipe.tick(infos, waves[w]))
-        t = pipe.timings[-1]
-        log(f"[steady] {name} wave {w}: wall {t['wall_s']:.4f} s = encode "
-            f"{t['encode_s']:.4f} + dirty scan {t['dirty_scan_s']:.4f} + "
-            f"dispatch {t['dispatch_s']:.4f} + pull residual "
-            f"{t['pull_s']:.4f} + fold {t['fold_s']:.4f} + commit "
-            f"{t['commit_s']:.4f}; serial {t['serial_fallback']} "
-            f"(host clock)")
-    rec.config = None
-    done = pipe.flush()
-    for t in pipe.timings[-len(done):]:
+    try:
+        for w in range(1, n_waves + 1):
+            if w == churn_at:
+                t0 = time.perf_counter()
+                pipe.barrier()      # NodeInfos change between ticks
+                t1 = time.perf_counter()
+                n = finish_tasks(enc, infos, 32)
+                log(f"[steady] {name}: {n} tasks finished before wave {w}, "
+                    f"after a {t1 - t0:.4f} s commit barrier (host clock)")
+            if w == invalidate_at:
+                rp.invalidate()
+                log(f"[steady] {name}: invalidate() before wave {w}")
+            done.extend(pipe.tick(infos, waves[w]))
+            t = pipe.timings[-1]
+            log(f"[steady] {name} wave {w}: wall {t['wall_s']:.4f} s = "
+                f"barrier {t['barrier_s']:.4f} + encode {t['encode_s']:.4f} "
+                f"+ dirty scan {t['dirty_scan_s']:.4f} + dispatch "
+                f"{t['dispatch_s']:.4f} + pull residual {t['pull_s']:.4f} + "
+                f"fold {t['fold_s']:.4f} + commit {t['commit_s']:.4f}; "
+                f"serial {t['serial_fallback']}, commit overlapped "
+                f"{t['commit_overlapped']} (host clock)")
+        rec.config = None
+        n_ticks = len(pipe.timings)
+        done.extend(pipe.flush())
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        pipe.close()
+    for t in pipe.timings[n_ticks:]:
         log(f"[steady] {name} flush: wall {t['wall_s']:.4f} s = pull "
             f"residual {t['pull_s']:.4f} + fold {t['fold_s']:.4f} + commit "
             f"{t['commit_s']:.4f} (host clock)")
-    completed(done)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
+    w = pipe.worker
+    if w is not None:
+        log(f"[steady] {name} commit worker: {w.jobs_total} heavy halves, "
+            f"busy {w.busy_s:.4f} s, per job "
+            f"{[round(x, 4) for x in w.job_s]} (host clock); the wave loop "
+            f"spent {sum(t['barrier_s'] for t in pipe.timings):.4f} s in "
+            f"barriers")
+    t0 = time.perf_counter()
+    placed = [check_wave(name, k, rp, p, c) for k, (p, c) in enumerate(done)]
+    t_check = time.perf_counter() - t0
     if len(placed) != n_waves + 1 or rp.taps:
         fail(f"[steady] {name}: {len(placed)} waves completed of "
              f"{n_waves + 1}")
     log(f"[steady] {name}: {sum(placed)} tasks placed in {n_waves + 1} "
         f"waves {placed}, every wave equal to the CPU oracle and every "
-        f"carry equal to the expected fold; {t_end - t_start - t_check:.3f} "
-        f"s for the {n_waves} pipelined waves and the flush (host clock, "
-        f"synchronised, checks excluded); uploads: full {rp.uploads_full} "
-        f"{rp.uploads_svc}, delta rows {rp.uploads_delta_rows}, group "
-        f"tables {rp.uploads_group_tables}, {rp.uploads_h2d_bytes} bytes; "
-        f"pulls {rp.pulls}; "
-        f"{sum(t['serial_fallback'] for t in pipe.timings)} serial ticks")
-    return rp
+        f"carry equal to the expected fold (checked in {t_check:.1f} s); "
+        f"{t_end - t_start:.3f} s for the {n_waves} pipelined waves and the "
+        f"flush (host clock, synchronised); uploads: full "
+        f"{rp.uploads_full} {rp.uploads_svc}, delta rows "
+        f"{rp.uploads_delta_rows}, group tables {rp.uploads_group_tables}, "
+        f"{rp.uploads_h2d_bytes} bytes; pulls {rp.pulls}; "
+        f"{sum(t['serial_fallback'] for t in pipe.timings)} serial ticks, "
+        f"{sum(t['commit_overlapped'] for t in pipe.timings)} overlapped")
+    return rp, [c for _p, c in done]
 
 
 def flagship_waves(n_waves, seed):
@@ -695,25 +844,58 @@ def flagship_ticks(seed, n_ticks, rec):
 
 
 def phase_steady(seed, recorder):
-    """The resident steady tick at full width: grid (dense pulls), node-
-    heavy (sparse pulls), flagship tree. Returns the resident objects."""
-    out = {}
+    """The resident steady tick at full width: grid with the async and then
+    the synchronous commit (dense pulls), the two runs equal wave for wave
+    and NodeInfo for NodeInfo; grid under binpack (K9); node-heavy (sparse
+    pulls); flagship tree. Only each run's upload and pull counters are
+    kept."""
+    seen = {}
+
+    def keep(name, rp):
+        seen[name] = (dict(rp.uploads_svc), dict(rp.pulls))
+
     recorder.active = True
-    out["grid"] = steady_run(
-        "grid", recorder, grid_nodes(random.Random(seed + 1), N_NODES),
-        lambda w: grid_groups(100 + w, N_GROUPS, TASKS_PER_GROUP),
-        STEADY_WAVES, churn_at=7,
-        invalidate_at=8)
-    out["node-heavy"] = steady_run(
-        "node-heavy", recorder,
-        grid_nodes(random.Random(seed + 2), HEAVY_NODES),
-        lambda w: grid_groups(200 + w, N_GROUPS, HEAVY_PER_SERVICE),
-        STEADY_WAVES, churn_at=7, invalidate_at=8)
-    out["flagship tree"] = flagship_ticks(seed, FLAGSHIP_TICKS, recorder)
+    first = None
+    for k, mode in enumerate(("async", "sync")):
+        name = "grid" + ("" if mode == "async" else " sync")
+        infos = grid_nodes(random.Random(seed + 1), N_NODES)
+        rp, counts = steady_run(
+            name, recorder, infos,
+            lambda w: grid_groups(100 + w, N_GROUPS, TASKS_PER_GROUP),
+            STEADY_WAVES, churn_at=7, invalidate_at=8,
+            async_commit=mode == "async", record=k == 0)
+        keep(name, rp)
+        run = (counts, [info_state(i) for i in infos])
+        del rp, infos
+        if first is None:
+            first = run
+        elif len(run[0]) != len(first[0]) or any(
+                not np.array_equal(a, b) for a, b in zip(run[0], first[0])):
+            fail(f"[steady] {name}: placed differently from the async grid "
+                 "run")
+        elif run[1] != first[1]:
+            fail(f"[steady] {name}: NodeInfos after the flush differ from "
+                 "the async grid run's")
+    log(f"[steady] grid: async and sync runs equal over "
+        f"{len(first[0])} waves (counts) and {len(first[1])} NodeInfos "
+        f"after the flush")
+    del first, run
+    for name, nodes, groups, strategy in (
+            ("grid binpack", grid_nodes(random.Random(seed + 3), N_NODES),
+             lambda w: grid_groups(300 + w, N_GROUPS, TASKS_PER_GROUP),
+             "binpack"),
+            ("node-heavy", grid_nodes(random.Random(seed + 2), HEAVY_NODES),
+             lambda w: grid_groups(200 + w, N_GROUPS, HEAVY_PER_SERVICE),
+             "spread")):
+        rp, _ = steady_run(name, recorder, nodes, groups, STEADY_WAVES,
+                           churn_at=7, invalidate_at=8, strategy=strategy)
+        keep(name, rp)
+        del rp, nodes
+    keep("flagship tree", flagship_ticks(seed, FLAGSHIP_TICKS, recorder))
     recorder.active = False
-    svc = {k: sum(rp.uploads_svc[k] for rp in out.values())
+    svc = {k: sum(v[0][k] for v in seen.values())
            for k in ("zeros", "sparse", "dense")}
-    pulls = {k: sum(rp.pulls[k] for rp in out.values())
+    pulls = {k: sum(v[1][k] for v in seen.values())
              for k in ("dense", "sparse")}
     missing = [k for k, n in {**svc, **{f"pull {k}": n for k, n in
                                         pulls.items()}}.items() if n == 0]
@@ -721,7 +903,6 @@ def phase_steady(seed, recorder):
         fail(f"[steady] branches not taken: {missing} (svc uploads {svc}, "
              f"pulls {pulls})")
     log(f"[steady] svc-matrix uploads {svc}; counts pulls {pulls}")
-    return out
 
 
 class Recorder:
@@ -805,11 +986,12 @@ def graph_ms(fn, iters=20, reps=10) -> float:
 
 # the fill each steady configuration runs
 STEADY_FILLS = {"grid": "flat_fill_step", "node-heavy": "flat_fill_step",
-                "flagship tree": "tree_fill_step"}
+                "flagship tree": "tree_fill_step",
+                "grid binpack": "binpack_fill_step"}
 
 
 def check_steady_placement(rec):
-    """K1-K3 against their plain versions on the first steady wave's
+    """K1-K3 and K9 against their plain versions on the first steady wave's
     inputs of each configuration: the resident shapes (nodes padded to the
     bucket, LMAX 3 padded to 4 levels, group tables as row views). Each
     fill runs the wave's remaining groups from the recorded carry; counts
@@ -1007,13 +1189,16 @@ SOURCES = {
                       "swarmkit_tpu/ops/resident.py:170"),
     "svc_matrix_build": ("swarmkit_tpu_torch/csrc/svc_matrix_build.cu",
                          "swarmkit_tpu/ops/resident.py:150"),
+    "binpack_fill_step": ("swarmkit_tpu_torch/csrc/binpack_fill.cu",
+                          "swarmkit_tpu/ops/placement.py:285"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
                             "tree_fill_step", "replay_commit"),
+         "binpack": ("static_mask", "binpack_fill_step", "replay_commit"),
          "steady": ("static_mask", "flat_fill_step", "tree_fill_step",
-                    "resident_delta_scatter", "counts_window",
-                    "sparse_counts", "svc_matrix_build")}
+                    "binpack_fill_step", "resident_delta_scatter",
+                    "counts_window", "sparse_counts", "svc_matrix_build")}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -1052,13 +1237,19 @@ def main() -> int:
                 "resident_delta_scatter": rs.resident_delta_scatter,
                 "counts_window": rs.counts_window,
                 "sparse_counts": rs.sparse_counts,
-                "svc_matrix_build": rs.svc_matrix_build}
+                "svc_matrix_build": rs.svc_matrix_build,
+                "binpack_fill_step": pl.binpack_fill_step}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
+    by_path["binpack"] = drive(
+        "binpack", wrappers,
+        lambda: (phase_waves(seed, "binpack"), phase_binpack_flagship(seed)))
+    phase_native_walk(seed)
 
     rec = Recorder()
-    for name in ("static_mask", "flat_fill_step", "tree_fill_step"):
+    for name in ("static_mask", "flat_fill_step", "tree_fill_step",
+                 "binpack_fill_step"):
         rec.wrap(pl, name, key=lambda a, name=name: (
             f"{name} {rec.config}" if rec.config else None))
     for name in ("resident_delta_scatter", "counts_window", "sparse_counts"):

@@ -1,16 +1,19 @@
 """swarmkit_tpu_torch: the PyTorch/CUDA port of `swarmkit_tpu`.
 
-The port runs the scheduler's placement wave, its steady tick on
-device-resident node state (`ops/resident.py`, `ops/pipeline.py`) and the
+The port runs the scheduler's placement wave (spread, topology and
+binpack), its steady tick on device-resident node state (`ops/resident.py`,
+`ops/pipeline.py`, with the async commit plane of `ops/commit.py`) and the
 flagship cluster step on one NVIDIA H100. Host code (the object model, the
-encoder, the CPU oracles, the commit walk) is numpy/Python, as in the JAX
-package; the device work is eight CUDA C++ kernels for sm_90a under
-`csrc/`, each with its plain PyTorch version beside its wrapper in `ops/`.
+encoder, the CPU oracles) is numpy/Python, as in the JAX package, with the
+commit walk and the deep copy in C (`native/`); the device work is nine
+CUDA C++ kernels for sm_90a under `csrc/`, each with its plain PyTorch
+version beside its wrapper in `ops/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no device given and no CUDA device present they raise. A kernel wrapper
 runs the plain version only for tensors that lie on the CPU.
 
 The port imports neither JAX nor the JAX package; it keeps its own copy of
-what it needs (`api/`, `scheduler/`).
+what it needs (`api/`, `scheduler/`, `native/`, `utils/failpoints.py`,
+`analysis/lockgraph.py`).
 """

@@ -11,6 +11,7 @@ import copy as _copy
 from dataclasses import dataclass, field
 from typing import Any
 
+from .. import native
 from .specs import (
     Annotations,
     ClusterSpec,
@@ -56,8 +57,14 @@ class StoreObject:
     TABLE = ""
 
     def copy(self):
-        # the port has no native tree copier yet: deepcopy is the
-        # equivalent pure-Python path
+        # the object model is tree-shaped (no cycles, no aliasing between
+        # fields), so the native tree copier applies; unknown subtrees in
+        # `Any` fields go through deepcopy one by one, and the whole call
+        # does without the native module (tests/test_torch_native.py pins
+        # the equivalence)
+        hostops = native.load()
+        if hostops is not None:
+            return hostops.tree_copy(self, _copy.deepcopy)
         return _copy.deepcopy(self)
 
     def get_id(self) -> str:

@@ -12,6 +12,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
+from .. import native
 from .types import (
     NodeAvailability,
     NodeRole,
@@ -365,8 +366,11 @@ class ExtensionSpec:
 
 def deepcopy_spec(spec):
     """Uniform deep-copy, standing in for the reference's generated
-    CopyFrom. The port has no native tree copier yet; `copy.deepcopy` is
-    the equivalent pure-Python path."""
+    CopyFrom: the native tree copier when it is built (specs are
+    tree-shaped dataclasses), `copy.deepcopy` otherwise."""
+    hostops = native.load()
+    if hostops is not None:
+        return hostops.tree_copy(spec, copy.deepcopy)
     return copy.deepcopy(spec)
 
 

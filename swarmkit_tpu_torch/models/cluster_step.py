@@ -2,7 +2,7 @@
 
 The port of the JAX package's `models/cluster_step.py`. One cluster step
 places every pending task group (`ops.placement.schedule_groups`, kernels
-K1-K3) and advances the raft commit frontier (`ops.raft_replay.
+K1-K3, or K1 and K9 under binpack) and advances the raft commit frontier (`ops.raft_replay.
 replay_commit`, kernel K4), on the card unless the caller passes
 `device="cpu"`.
 
@@ -26,7 +26,7 @@ def cluster_step(acks, quorum, *placement_args, strategy: int = 0,
     """One cluster step: place all pending groups, advance the commit
     frontier. Returns (counts int32[G, N], totals int32[N], commit_index
     int32 scalar); placement inputs follow `scheduler.encode.
-    KERNEL_ARG_FIELDS`. strategy 0 = spread/topology; 1 (binpack) raises."""
+    KERNEL_ARG_FIELDS`. strategy 0 = spread/topology, 1 = binpack."""
     from ..ops.placement import schedule_groups
     from ..ops.raft_replay import replay_commit
 

@@ -56,6 +56,9 @@ ENTRIES = {
     "svc_matrix_build": {
         "skt_svc_matrix_build": [_P] * 3 + [ctypes.c_longlong, _I, _P],
     },
+    "binpack_fill": {
+        "skt_binpack_fill_step": [_P] * 14 + [_I] * 4 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -3,18 +3,23 @@
 
 `schedule_groups` places every pending task group, in order, over the
 nodes: a static eligibility mask[G, N], then for each group a step that
-computes the group's per-node capacity, water-fills its tasks under the
-canonical spread order (penalty, svc_count, total_count, node_idx) and
-folds the result into the node state that the next group sees. The counts
-are bit-identical to the greedy CPU oracle (`scheduler.batch.
-cpu_schedule_encoded`) and to the JAX reference.
+computes the group's per-node capacity, fills its tasks (spread: a water
+fill under the canonical order (penalty, svc_count, total_count,
+node_idx); binpack: fullest first, in the order (penalty, -svc_count,
+-total_count, node_idx)) and folds the result into the node state that the
+next group sees. The counts are bit-identical to the greedy CPU oracle
+(`scheduler.batch.cpu_schedule_encoded`) and to the JAX reference.
 
-Three kernels carry it, each a hand-written CUDA kernel (csrc/) with its
+Four kernels carry it, each a hand-written CUDA kernel (csrc/) with its
 plain PyTorch version beside its wrapper:
 
-  * `static_mask`      (K1, csrc/static_mask.cu) — the mask;
-  * `flat_fill_step`   (K2, csrc/flat_fill.cu)   — a step, no spread levels;
-  * `tree_fill_step`   (K3, csrc/tree_fill.cu)   — a step with spread levels.
+  * `static_mask`       (K1, csrc/static_mask.cu)  — the mask;
+  * `flat_fill_step`    (K2, csrc/flat_fill.cu)    — a spread step, no
+                                                     spread levels;
+  * `tree_fill_step`    (K3, csrc/tree_fill.cu)    — a spread step with
+                                                     spread levels;
+  * `binpack_fill_step` (K9, csrc/binpack_fill.cu) — a binpack step (spread
+                                                     levels ignored).
 
 A wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; anything else raises. Every launch adds
@@ -25,10 +30,9 @@ current stream; nothing synchronises between them.
 `schedule_core` is that loop on tensors already on the device, folding into
 a caller-owned `FillState` in place: the one-shot entries below call it on
 clones of their inputs, and the device-resident tick (`ops/resident.py`) on
-the state it keeps on the card across ticks.
-
-Only the spread strategy (with topology, which the encoder turns into an
-extra outer spread level) is ported: `strategy=1` (binpack) raises.
+the state it keeps on the card across ticks. `strategy=0` is spread (and
+topology, which the encoder turns into an extra outer spread level),
+`strategy=1` binpack.
 """
 from __future__ import annotations
 
@@ -47,9 +51,6 @@ UNLIMITED = 1 << 30
 _POUR_BITS = 30          # water-level search range: 31 bisect steps
 _SEC_PAD = 1 << 30       # secondary key of nodes off the boundary
 _I32_MAX = (1 << 31) - 1
-
-BINPACK_TODO = ("strategy=1 (binpack) is not ported yet "
-                "(ROADMAP.md, queue 1: binpack fill)")
 
 
 class FillTables(NamedTuple):
@@ -329,6 +330,20 @@ def _tree_water_fill_plain(cap, pen, svc, total, n_tasks, spread_rank):
     return counts + extra.to(torch.int32)
 
 
+def _binpack_fill_plain(cap, pen, svc, total, n_tasks):
+    """JAX `_binpack_fill`: stable lexsort by (pen, -svc, -total, idx) as
+    chained stable sorts from the least significant key, then the sorted
+    capacities' prefix clipped against q = min(n_tasks, sum(cap))."""
+    order = torch.arange(cap.shape[0], device=cap.device)
+    for key in (-total, -svc, pen.to(torch.int32)):
+        order = order[torch.sort(key[order], stable=True).indices]
+    cap_sorted = cap[order]
+    before = torch.cumsum(cap_sorted, 0, dtype=torch.int32) - cap_sorted
+    q = torch.minimum(n_tasks, cap.sum(dtype=torch.int32))
+    counts_sorted = torch.minimum((q - before).clamp(min=0), cap_sorted)
+    return torch.empty_like(cap).scatter_(0, order, counts_sorted)
+
+
 def flat_fill_step_plain(t: FillTables, s: FillState, g: int, out) -> None:
     """Plain PyTorch group step, no spread levels: writes out[g], folds s."""
     cap, svc = _node_caps_plain(t, s, g)
@@ -343,6 +358,16 @@ def tree_fill_step_plain(t: FillTables, s: FillState, g: int, out) -> None:
     cap, svc = _node_caps_plain(t, s, g)
     counts = _tree_water_fill_plain(cap, t.penalty[g], svc, s.totals,
                                     t.n_tasks[g], t.spread_rank[g])
+    out[g] = counts
+    _fold_plain(t, s, g, counts)
+
+
+def binpack_fill_step_plain(t: FillTables, s: FillState, g: int,
+                            out) -> None:
+    """Plain PyTorch binpack group step: writes out[g], folds s."""
+    cap, svc = _node_caps_plain(t, s, g)
+    counts = _binpack_fill_plain(cap, t.penalty[g], svc, s.totals,
+                                 t.n_tasks[g])
     out[g] = counts
     _fold_plain(t, s, g, counts)
 
@@ -427,6 +452,26 @@ def tree_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
 tree_fill_step.launches = 0
 
 
+def binpack_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
+    """Group g's binpack step (spread levels ignored): writes out[g] and
+    folds the counts into s. Plain version for CPU tensors, kernel K9
+    (csrc/binpack_fill.cu) for CUDA tensors."""
+    if _route(*t, *s, out) == "plain":
+        return binpack_fill_step_plain(t, s, g, out)
+    G, N, R, PV, _ = _check_fill(t, s, out)
+    if not 0 <= g < G:
+        raise IndexError(f"group {g} out of range for {G} groups")
+    scratch = torch.empty(N, dtype=torch.int32, device=out.device)
+    rc = _kernels.lib("binpack_fill").skt_binpack_fill_step(
+        *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(scratch),
+        g, N, R, PV, _kernels.stream_of(out))
+    _kernels.check(rc, "binpack_fill_step")
+    binpack_fill_step.launches += 1
+
+
+binpack_fill_step.launches = 0
+
+
 # ------------------------------------------------------------ entries
 def _check_ranges(n_tasks, svc_idx, spread_rank, N: int, S: int) -> int:
     """Host checks on values the kernels index or sum with, in one device
@@ -453,17 +498,17 @@ def _check_ranges(n_tasks, svc_idx, spread_rank, N: int, S: int) -> int:
 def schedule_core(ready, node_val, node_plat, node_plugins, extra_mask,
                   constraints, plat_req, req_plugins, vol_topo, n_tasks,
                   svc_idx, need_res, max_replicas, penalty, has_ports,
-                  group_ports, spread_rank,
-                  state: FillState) -> torch.Tensor:
-    """The spread placement on tensors already on one device: K1, then one
-    K2 or K3 step per group, in order. Folds every group's counts into the
+                  group_ports, spread_rank, state: FillState,
+                  strategy: int = 0) -> torch.Tensor:
+    """The placement on tensors already on one device: K1, then one step
+    per group, in order: K9 for binpack (`strategy=1`), else K2 or K3 as
+    LMAX, the spread table's depth as given, says. Folds every group's counts into the
     caller-owned `state` IN PLACE (the counterpart of the JAX resident
     tick's donated state) and returns counts int32[G, N].
 
     No host round trip: the value checks the kernels rely on (svc_idx in
     [0, S), spread_rank in [0, N), N * max(n_tasks) < 2^31) are the
-    caller's, made on the host before the upload or by `_check_ranges`.
-    Which fill runs follows LMAX, the spread table's depth as given."""
+    caller's, made on the host before the upload or by `_check_ranges`."""
     G, N = extra_mask.shape
     counts = torch.zeros((G, N), dtype=torch.int32, device=extra_mask.device)
     if G and N:
@@ -472,16 +517,17 @@ def schedule_core(ready, node_val, node_plat, node_plugins, extra_mask,
                            vol_topo)
         tables = FillTables(mask, need_res, n_tasks, svc_idx, max_replicas,
                             penalty, has_ports, group_ports, spread_rank)
-        step = tree_fill_step if spread_rank.shape[1] else flat_fill_step
+        if strategy == 1:
+            step = binpack_fill_step
+        else:
+            step = tree_fill_step if spread_rank.shape[1] else flat_fill_step
         for g in range(G):
             step(tables, state, g, counts)
     return counts
 
 
 def _schedule(args, strategy: int, device):
-    if strategy == 1:
-        raise NotImplementedError(BINPACK_TODO)
-    if strategy != 0:
+    if strategy not in (0, 1):
         raise ValueError(f"unknown strategy {strategy}")
     dev = resolve_device(device)
     (ready, node_val, node_plat, node_plugins, extra_mask, constraints,
@@ -497,15 +543,17 @@ def _schedule(args, strategy: int, device):
     counts = schedule_core(ready, node_val, node_plat, node_plugins,
                            extra_mask, constraints, plat_req, req_plugins,
                            vol_topo, n_tasks, svc_idx, need_res, max_replicas,
-                           penalty, has_ports, group_ports, spread_rank, state)
+                           penalty, has_ports, group_ports, spread_rank, state,
+                           strategy)
     return counts, state, max_nt
 
 
 def schedule_groups(*args, strategy: int = 0, device=None):
     """One-shot entry: (counts int32[G, N], totals int32[N],
     svc_counts int32[S, N]). `args` are the KERNEL_ARG_FIELDS arrays (numpy
-    or tensors; `vol_topo` may be left out). Runs on the card unless
-    `device="cpu"`; the inputs are not modified."""
+    or tensors; `vol_topo` may be left out); strategy 0 is spread, 1
+    binpack. Runs on the card unless `device="cpu"`; the inputs are not
+    modified."""
     counts, state, _ = _schedule(args, strategy, device)
     return counts, state.totals, state.svc_counts
 
@@ -520,7 +568,7 @@ def schedule_groups_compact(*args, strategy: int = 0, device=None):
 def schedule_encoded(p, device=None) -> np.ndarray:
     """Run the placement on an EncodedProblem; returns numpy counts
     int32[G, N]. No bucket padding: PyTorch does not recompile per shape."""
-    if getattr(p, "strategy", "spread") == "binpack":
-        raise NotImplementedError(BINPACK_TODO)
-    counts = schedule_groups_compact(*kernel_args(p), device=device)
+    strategy = 1 if getattr(p, "strategy", "spread") == "binpack" else 0
+    counts = schedule_groups_compact(*kernel_args(p), strategy=strategy,
+                                     device=device)
     return counts.cpu().numpy().astype(np.int32)

@@ -27,7 +27,7 @@ it against the encoder's, and queues only the divergent rows for the next
 tick.
 
 Four kernels of this module carry the tick beside the placement kernels
-K1-K3 (each a hand-written CUDA kernel under csrc/ with its plain PyTorch
+K1-K3 and K9 (binpack) (each a hand-written CUDA kernel under csrc/ with its plain PyTorch
 version beside its wrapper; the plain version runs for CPU tensors only):
 
   * `resident_delta_scatter` (K5) — the row deltas into the state;
@@ -58,7 +58,6 @@ from ..scheduler.encode import (
 )
 from . import _kernels
 from .placement import (
-    BINPACK_TODO,
     FillState,
     _expect,
     _ptr,
@@ -481,8 +480,6 @@ class ResidentPlacement:
         blocking; `PendingCounts.get()` waits for it. A caller that commits
         the PREVIOUS wave between the two pays only what the copy has left
         (`ops/pipeline.py` orchestrates exactly that)."""
-        if getattr(p, "strategy", "spread") == "binpack":
-            raise NotImplementedError(BINPACK_TODO)
         enc = self.enc
         G, N = p.extra_mask.shape
 
@@ -533,6 +530,9 @@ class ResidentPlacement:
         lp = _bucket(lmax) if lmax else 0
         vp = _bucket(vt.shape[1]) if use_voltopo else 0
         dims = (gp, np_b, kp, plp, pvp, rp, lp, vp, N)
+        # binpack (K9) ignores the spread table, which ships all the same,
+        # as the reference ships it
+        strategy = 1 if getattr(p, "strategy", "spread") == "binpack" else 0
 
         # values the kernels index or sum with, checked on the host: the
         # tick never waits on the card for a check
@@ -653,7 +653,7 @@ class ResidentPlacement:
             n_tasks, svc_idx_d, need_res, max_replicas,
             penalty if use_penalty else pen_off,
             has_ports, group_ports, spread_rank,
-            FillState(total0, svc_mat, avail_res, port_used))
+            FillState(total0, svc_mat, avail_res, port_used), strategy)
         # pull form: dense [G, N] window vs sparse (idx, val), by bytes. k
         # bounds the nonzero count by the tick's total tasks, bucketed
         total = int(p.n_tasks.sum())

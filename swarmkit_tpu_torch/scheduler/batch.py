@@ -10,8 +10,9 @@ Placement parity between them is the judged property. `materialize` turns
 per-(group, node) counts into the deterministic task→node map both backends
 share: a group's tasks, sorted by id, zip with the canonical slot order.
 
-Only the spread strategy (and topology, which is spread with an extra
-outer level) is ported; a binpack problem raises `NotImplementedError`.
+The commit walk (`apply_placements`) runs in C (`native/_hostops.c`) when
+the native module is built, and in Python otherwise; the Python walk is the
+oracle the C one is held to.
 """
 from __future__ import annotations
 
@@ -19,17 +20,11 @@ from operator import itemgetter
 
 import numpy as np
 
+from .. import native
+from ..utils import failpoints
 from .encode import UNLIMITED, VOL_TOPO_MOUNTS, EncodedProblem
 from .nodeinfo import NodeInfo, task_reservations
-from .spread import GroupFill, greedy_fill, tree_fill
-
-BINPACK_TODO = ("the binpack fill is not ported yet "
-                "(ROADMAP.md, queue 1: binpack fill)")
-
-
-def _check_strategy(p: EncodedProblem) -> None:
-    if getattr(p, "strategy", "spread") == "binpack":
-        raise NotImplementedError(BINPACK_TODO)
+from .spread import GroupFill, binpack_fill, greedy_fill, tree_fill
 
 
 def _group_caps(p: EncodedProblem, gi: int, avail: np.ndarray,
@@ -114,7 +109,6 @@ def _cpu_vol_topo_ok(node_val: np.ndarray, vol_topo: np.ndarray) -> np.ndarray:
 
 def cpu_schedule_encoded(p: EncodedProblem) -> np.ndarray:
     """Sequential-groups greedy fill; returns counts int32[G, N]."""
-    _check_strategy(p)
     G, N = p.extra_mask.shape
     static_mask = cpu_static_mask(p)
     totals = p.total0.astype(np.int64).copy()
@@ -133,13 +127,17 @@ def cpu_schedule_encoded(p: EncodedProblem) -> np.ndarray:
             svc_count=svc.tolist(),
             total_count=totals.tolist(),
         )
-        lmax = 0 if p.spread_rank is None else p.spread_rank.shape[1]
-        if lmax:
-            level_ranks = [p.spread_rank[gi, li].tolist()
-                           for li in range(lmax)]
-            counts = np.array(tree_fill(g, level_ranks), np.int32)
+        if getattr(p, "strategy", "spread") == "binpack":
+            # binpack ignores spread preferences: flat fullest-first fill
+            counts = np.array(binpack_fill(g), np.int32)
         else:
-            counts = np.array(greedy_fill(g), np.int32)
+            lmax = 0 if p.spread_rank is None else p.spread_rank.shape[1]
+            if lmax:
+                level_ranks = [p.spread_rank[gi, li].tolist()
+                               for li in range(lmax)]
+                counts = np.array(tree_fill(g, level_ranks), np.int32)
+            else:
+                counts = np.array(greedy_fill(g), np.int32)
         out[gi] = counts
         totals += counts
         svc_counts[p.svc_idx[gi]] += counts
@@ -171,7 +169,6 @@ def materialize_orders(p: EncodedProblem, counts: np.ndarray) -> list:
     PENDING."""
     from .spread import PENALTY_BASE
 
-    _check_strategy(p)
     N = len(p.node_ids)
     node_arange = np.arange(N)
     totals = p.total0.astype(np.int64).copy()
@@ -182,6 +179,17 @@ def materialize_orders(p: EncodedProblem, counts: np.ndarray) -> list:
         placed = int(c.sum())
         if placed:
             svc = svc_counts[p.svc_idx[gi]]
+            if getattr(p, "strategy", "spread") == "binpack":
+                # binpack slot order = nodes in INITIAL key order
+                # (penalty, -svc, -total, idx), each repeated counts[i]
+                # times: every slot on a node sorts before any slot on the
+                # next node (spread.binpack_slot_order)
+                pen = np.where(p.penalty[gi], 1, 0)
+                order_nodes = np.lexsort((node_arange, -totals, -svc, pen))
+                orders.append(np.repeat(order_nodes, c[order_nodes]))
+                totals += c
+                svc_counts[p.svc_idx[gi]] += c
+                continue
             base_k = np.where(p.penalty[gi], PENALTY_BASE, 0) + svc
             idx = np.repeat(node_arange, c)                       # [placed]
             j = np.arange(placed) - np.repeat(np.cumsum(c) - c, c)
@@ -209,17 +217,19 @@ def group_needs_per_task_add(t0) -> bool:
 
 
 def _add_serial(info, tasks) -> int:
-    """Per-task oracle path (collision-segment fallback of the bulk
-    walk)."""
+    """Per-task oracle path (collision-segment fallback of both the native
+    and the Python bulk walks)."""
     return sum(1 for t in tasks if info.add_task(t))
 
 
-def apply_placements(infos: list, placed_groups: list) -> int:
+def apply_placements(infos: list, placed_groups: list, *,
+                     native_walk: bool = True) -> int:
     """Bulk NodeInfo bookkeeping for one committed scheduler wave.
     placed_groups: (t0, tasks, node_idx[, ids]) per group — tasks[i] was
     placed on infos[node_idx[i]]; t0 is any task carrying the group's
     shared spec content; optional ids is the parallel id list built while
-    the tasks were cache-hot (TaskGroup.ids). State lands bit-identical
+    the tasks were cache-hot (TaskGroup.ids); with it the native walk never
+    dereferences a task object. State lands bit-identical
     to calling `add_task` per task — mutations counter included (the encoder fingerprint contract)
     — at O(nodes + cells) Python cost instead of O(tasks)
     attribute-chasing per placement (the reference pays that walk in
@@ -236,8 +246,12 @@ def apply_placements(infos: list, placed_groups: list) -> int:
     add_task for its whole segment; a None info (node removed between
     encode and commit) is skipped, uncounted.
 
-    This is the JAX package's pure-Python walk; its native C walk and the
-    `commit.walk` failpoint are not ported yet."""
+    The walk runs in C (`native/_hostops.c`, built at first use) unless the
+    module is unavailable or `native_walk=False`, which takes the Python
+    walk below: the oracle the C walk is held to."""
+    # failpoint `commit.walk`: a crash at the walk's stage boundary, before
+    # any NodeInfo mutates (the all-or-nothing point)
+    failpoints.fp("commit.walk")
     # validate EVERYTHING before mutating anything: a mid-wave raise
     # would leave NodeInfo bookkeeping half-applied with no heal path
     checked: list[tuple] = []
@@ -279,6 +293,23 @@ def apply_placements(infos: list, placed_groups: list) -> int:
             plain.append((t0, tasks, nidx, ids))
     if not plain:
         return n_added
+
+    hostops = native.load() if native_walk else None
+    if hostops is not None:
+        # whole-wave native path: the per-group lists go straight in; the C
+        # side counting-sorts node-major (group-stable: the order of the
+        # argsort concatenation below) and walks the segments in one pass,
+        # releasing the GIL between them
+        entries = []
+        for t0, tasks, nidx, ids in plain:
+            res = task_reservations(t0.spec)
+            entries.append((
+                tasks if isinstance(tasks, list) else list(tasks),
+                ids if isinstance(ids, list) else list(ids),
+                np.ascontiguousarray(nidx, np.int64),
+                int(res.memory_bytes or 0), int(res.nano_cpus or 0),
+                t0.service_id))
+        return n_added + hostops.apply_wave(infos, entries, _add_serial)
 
     # exact int64 per-node aggregates, one vector op per group
     N = len(infos)
@@ -357,13 +388,14 @@ def apply_placements(infos: list, placed_groups: list) -> int:
     return n_added
 
 
-def apply_wave(infos: list, groups: list, orders: list) -> int:
+def apply_wave(infos: list, groups: list, orders: list, *,
+               native_walk: bool = True) -> int:
     """One scheduler wave's NodeInfo bookkeeping: per group, the id-sorted
     tasks zip with the canonical slot order (materialize_orders output);
     tasks past the order length are unplaced. infos is indexed by the
     problem's node order (None = node gone). Returns tasks added —
     `== counts.sum()` iff the wave applied cleanly (the apply_counts
-    contract)."""
+    contract). `native_walk=False` takes the Python walk."""
     placed_groups = []
     for g, order in zip(groups, orders):
         k = len(order)
@@ -373,7 +405,7 @@ def apply_wave(infos: list, groups: list, orders: list) -> int:
                 (g.tasks[0], g.tasks[:k] if k < len(g.tasks) else g.tasks,
                  order, ids[:k] if ids is not None and k < len(ids)
                  else ids))
-    return apply_placements(infos, placed_groups)
+    return apply_placements(infos, placed_groups, native_walk=native_walk)
 
 
 def materialize(p: EncodedProblem, counts: np.ndarray) -> dict[str, str]:

@@ -14,8 +14,9 @@ break by node index — and implement it twice:
     identical placements (greedy with uniform (+1,+1) increments equals
     taking the globally smallest slots in sorted order).
 
-This module holds the spread oracles only; the binpack oracles and the
-slot-order helpers of the JAX package are not ported yet.
+The binpack strategy has its own oracles here (`binpack_fill`, the heap
+greedy; `binpack_reference`, the closed form the K9 kernel computes;
+`binpack_slot_order`, the canonical assignment order).
 
 A node's *capacity* within one group fill folds in the dynamic filters the
 reference re-checks mid-fill (scheduler.go:910): resource depletion,
@@ -155,3 +156,71 @@ def _pour(quota: int, totals: list[int], caps: list[int]) -> list[int]:
         if give[j] < caps[j]:
             heapq.heappush(heap, (t + 1, j))
     return give
+
+
+def binpack_fill(g: GroupFill) -> list[int]:
+    """Binpack strategy oracle: prefer the FULLEST feasible node.
+
+    Canonical order (documented, applied identically by the oracle and the
+    kernel):
+    (penalty, -svc_count, -total_count, node_idx) — the spread comparator
+    with the count legs inverted, penalty still dominant, node index the
+    final tie-break. Each assignment increments svc/total, so an assigned
+    node's key strictly IMPROVES (-svc decreases) — greedy therefore
+    drains each node to capacity before moving on, i.e. sequential
+    consumption in initial-key order (`binpack_reference` is the closed
+    form the kernel mirrors). Spread preferences are ignored: binpack is
+    a pure consolidation strategy (flat fill).
+    """
+    n = len(g.eligible)
+    counts = [0] * n
+    heap: list[tuple[int, int, int]] = []
+    key = [0] * n
+    tot = list(g.total_count)
+    for i in range(n):
+        if g.eligible[i] and g.capacity[i] > 0:
+            key[i] = (PENALTY_BASE if g.penalty[i] else 0) - g.svc_count[i]
+            heapq.heappush(heap, (key[i], -tot[i], i))
+    remaining = g.n_tasks
+    while remaining > 0 and heap:
+        k, t, i = heapq.heappop(heap)
+        counts[i] += 1
+        remaining -= 1
+        key[i] -= 1
+        tot[i] += 1
+        if counts[i] < g.capacity[i]:
+            heapq.heappush(heap, (key[i], -tot[i], i))
+    return counts
+
+
+def binpack_reference(g: GroupFill) -> list[int]:
+    """Closed-form binpack (the kernel's math, host-side): sort nodes by
+    the INITIAL key (penalty, -svc_count, -total_count, node_idx) and
+    consume capacities sequentially. Equal to `binpack_fill` because an
+    assignment only improves the assigned node's key — the heap never
+    switches nodes before capacity exhausts."""
+    n = len(g.eligible)
+    cap = [g.capacity[i] if g.eligible[i] and g.capacity[i] > 0 else 0
+           for i in range(n)]
+    order = sorted(range(n), key=lambda i: (
+        1 if g.penalty[i] else 0, -g.svc_count[i], -g.total_count[i], i))
+    left = min(g.n_tasks, sum(cap))
+    counts = [0] * n
+    for i in order:
+        if left <= 0:
+            break
+        take = min(cap[i], left)
+        counts[i] = take
+        left -= take
+    return counts
+
+
+def binpack_slot_order(g: GroupFill, counts: list[int]) -> list[int]:
+    """Canonical assignment order of a binpack fill: nodes in initial-key
+    order, each node's slots consecutive (sequential consumption)."""
+    order = sorted(range(len(g.eligible)), key=lambda i: (
+        1 if g.penalty[i] else 0, -g.svc_count[i], -g.total_count[i], i))
+    out: list[int] = []
+    for i in order:
+        out.extend([i] * counts[i])
+    return out

@@ -165,10 +165,3 @@ def test_steady_waves_pipeline_without_drains():
     # wave 1 drains once: wave 0's service rows were hypothetical
     assert [t["serial_fallback"] for t in pipe.timings][2:] == [False] * 7
     assert rp.uploads_full == 1 and rp.uploads_delta_rows == 0
-
-
-def test_async_commit_is_not_ported():
-    enc = SIDES["torch"][0].encode.IncrementalEncoder()
-    with pytest.raises(NotImplementedError, match="async_commit"):
-        torch_pipeline.TickPipeline(enc, resident_of("torch", enc),
-                                    lambda p, c: None, async_commit=True)

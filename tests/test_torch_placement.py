@@ -310,19 +310,6 @@ def test_schedule_encoded_on_port_problem(seed):
     np.testing.assert_array_equal(got, jax_batch.cpu_schedule_encoded(p))
 
 
-def test_binpack_raises_not_implemented():
-    p = jax_problem(7000)
-    args = jax_encode.kernel_args(p)
-    with pytest.raises(NotImplementedError, match="binpack"):
-        torch_placement.schedule_groups(*args, strategy=1, device="cpu")
-    q = convert.encoded_problem_from_arrays(problem_fields(p))
-    q.strategy = "binpack"
-    for fn in (torch_batch.cpu_schedule_encoded,
-               lambda q: torch_batch.device_schedule_encoded(q, "cpu")):
-        with pytest.raises(NotImplementedError, match="binpack"):
-            fn(q)
-
-
 def test_inputs_are_checked_and_not_modified():
     p = jax_problem(7100)
     arrays = jax_encode.kernel_args(p)

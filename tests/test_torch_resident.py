@@ -546,13 +546,3 @@ def test_no_cuda_device_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_pipeline.TickPipeline(
             enc, torch_resident.ResidentPlacement(enc), lambda p, c: None)
-
-
-def test_binpack_problem_raises():
-    rng = random.Random(1)
-    infos = [make_info(TORCH_API, rng, i) for i in range(6)]
-    enc = TORCH_API.encode.IncrementalEncoder(strategy="binpack")
-    rp = torch_resident.ResidentPlacement(enc, device="cpu")
-    p = enc.encode(infos, [plain_group(TORCH_API, rng, 0, 3)], now=NOW)
-    with pytest.raises(NotImplementedError, match="binpack"):
-        rp.schedule(p)
