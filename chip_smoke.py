@@ -4,7 +4,7 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the nine kernels from csrc/, all at once, and
+  2. build    — nvcc builds the 13 kernels from csrc/, all at once, and
                 cc the native commit walk (native/_hostops.c); the run
                 fails unless the native module loaded;
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
@@ -46,9 +46,26 @@ result line) if any phase fails:
                 recorded from phase 8; times by CUDA events, and for K5-K8
                 also the device time alone (their calls replayed from a
                 CUDA graph).
+ 10. replay   — the raft replay burst at bench.py's shape (5 managers x
+                1,000,000 entries, bench.py:580-660): the cold bit-packed
+                upload unpacked on the card (K10), replay_commit (K4), 4
+                bursts of 16 frontier advances on the resident matrix (K11)
+                and one single advance, match_index_commit (K12) on every
+                round's frontiers, and the streaming replay_log_scan (K13,
+                chunk 65,536) on that matrix and on the flagship's 5 x 2^20
+                log: every commit, and the final matrix, equal to numpy;
+                then K10-K13 against their plain versions on those inputs;
+ 11. int32    — two ticks past the old N * max(n_tasks) >= 2^31 guard whose
+                capacity sums stay far below 2^31 (the steps now flag a
+                group only when its sum reaches 2^31): a resident tick at
+                65,537 nodes (131,072 on the card) with a 16,384-task
+                service and the one-shot entry at 20,000 nodes with a
+                131,072-task service, each placing every task, equal to the
+                CPU oracle.
 
-Each path (phases 4-5, phase 6, and phase 8) runs with every launch count
-set to 0 just before it, and fails unless each of its kernels launched.
+Each path (phases 4-5, phase 6, phase 8, phase 10 and phase 11) runs with
+every launch count set to 0 just before it, and fails unless each of its
+kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
 line of its output is {"ok": true, "device": {...}}.
@@ -254,10 +271,12 @@ def _tables_and_state(args, mask):
 
 
 def _run_steps(step, tables, state, G, N):
-    out = torch.zeros((G, N), dtype=torch.int32, device=state.totals.device)
+    dev = state.totals.device
+    out = torch.zeros((G, N), dtype=torch.int32, device=dev)
+    flags = torch.ones(G, dtype=torch.int32, device=dev)   # steps write 0
     for g in range(G):
-        step(tables, state, g, out)
-    return out
+        step(tables, state, g, out, flags)
+    return out, flags
 
 
 def check_mask(name, p_args, dims):
@@ -298,8 +317,11 @@ def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
     tables, fresh_state = _tables_and_state(p_args, mask)
     G, N, R, PV = dims["G"], dims["N"], dims["R"], dims["PV"]
     s_k, s_p = fresh_state(), fresh_state()
-    got = _run_steps(kernel_step, tables, s_k, G, N)
-    want = _run_steps(plain_step, tables, s_p, G, N)
+    got, f_k = _run_steps(kernel_step, tables, s_k, G, N)
+    want, f_p = _run_steps(plain_step, tables, s_p, G, N)
+    if f_k.any() or f_p.any():
+        fail(f"{kernel_step.__name__} on {name}: overflow flags set "
+             f"(kernel {f_k.tolist()}, plain {f_p.tolist()})")
     err = max(int((a - b).abs().max()) for a, b in (
         (got, want), (s_k.totals, s_p.totals),
         (s_k.svc_counts, s_p.svc_counts), (s_k.avail, s_p.avail),
@@ -313,12 +335,13 @@ def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
         for _ in range(reps):
             st = fresh_state()
             out = torch.zeros((G, N), dtype=torch.int32, device=mask.device)
+            flags = torch.zeros(G, dtype=torch.int32, device=mask.device)
             torch.cuda.synchronize()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             for g in range(G):
-                step(tables, st, g, out)
+                step(tables, st, g, out, flags)
             e1.record()
             e1.synchronize()
             total += e0.elapsed_time(e1)
@@ -1008,7 +1031,7 @@ def check_steady_placement(rec):
                            pl.static_mask_plain(*args)):
             fail(f"static_mask differs from its plain version on the "
                  f"{config} steady wave")
-        tables, state, g0, out = rec.calls[keys[1]]
+        tables, state, g0, out, flags = rec.calls[keys[1]]
         G, N = out.shape
         L = tables.spread_rank.shape[1]
         if config == "flagship tree" and L != 4:
@@ -1016,19 +1039,22 @@ def check_steady_placement(rec):
                  "expected LMAX 3 padded to 4")
 
         def run(fn):
-            st, o = _clone(state), out.clone()
+            st, o, f = _clone(state), out.clone(), flags.clone()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             for g in range(g0, G):
-                fn(tables, st, g, o)
+                fn(tables, st, g, o, f)
             e1.record()
             e1.synchronize()
-            return (o, *st), e0.elapsed_time(e1) / (G - g0)
+            return (o, f, *st), e0.elapsed_time(e1) / (G - g0)
 
         got, _ = run(getattr(pl, step).real)
         want, plain_ms = run(getattr(pl, f"{step}_plain"))
-        for a, b, what in zip(got, want, ("counts",) + state._fields):
+        if got[1].any():
+            fail(f"{step} on the {config} steady wave: overflow flags set")
+        for a, b, what in zip(got, want,
+                              ("counts", "flags") + state._fields):
             if not torch.equal(a, b):
                 fail(f"{step} differs from its plain version on the "
                      f"{config} steady wave ({what})")
@@ -1171,6 +1197,264 @@ def check_resident_kernels(rec):
     return out
 
 
+# ------------------------------------------------------------ raft replay
+REPLAY_ENTRIES = 1_000_000     # bench.py's raft-replay row: 5 x 1,000,000
+BURST, N_BURSTS = 16, 4        # 4 bursts of 16 frontier advances
+SCAN_CHUNK = 65_536
+
+
+def _np_commit(acks, quorum) -> int:
+    ok = acks.sum(axis=0, dtype=np.int32) >= quorum
+    return acks.shape[1] if ok.all() else int(np.argmin(ok))
+
+
+def phase_replay(seed, rec):
+    """The raft replay burst at bench.py's shape (bench.py:580-660): the
+    cold bit-packed upload (K10), a replay (K4), 4 bursts of 16 frontier
+    advances on the resident matrix (K11) and one single advance, the
+    leader-side rule on every round's frontiers (K12), and the streaming
+    scan (K13) on that matrix (E not a multiple of the chunk) and on the
+    flagship's 5 x 2^20 log. Every commit against numpy. Keeps the inputs
+    of each kernel in `rec` for the checks against the plain versions."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import raft_replay as rr
+    from swarmkit_tpu_torch.ops.bitpack import pack_bits
+
+    dev = resolve_device()
+    M, E = N_MANAGERS, REPLAY_ENTRIES
+    rng = np.random.default_rng(1)          # bench.py:596-601
+    acks = np.zeros((M, E), bool)
+    frontier = rng.integers(E // 2, E, M).astype(np.int32)
+    for m in range(M):
+        acks[m, :frontier[m]] = True
+    quorum = M // 2 + 1
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = torch.from_numpy(pack_bits(acks)).to(dev)
+    acks_dev = rr.unpack_acks(packed, E)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    rec["unpack_bits"] = (packed, E)
+    if not np.array_equal(acks_dev.cpu().numpy(), acks):
+        fail("[replay] the unpacked ack matrix differs from numpy's")
+    commit, _ = rr.replay_commit(acks_dev, quorum)
+    if int(commit) != _np_commit(acks, quorum):
+        fail(f"[replay] replay_commit {int(commit)} != numpy tally")
+
+    f = frontier
+    bursts = []
+    for _ in range(N_BURSTS):                # bench.py:624-632
+        rounds = []
+        for _ in range(BURST):
+            f = np.minimum(f + rng.integers(0, 1000, M), E - 1) \
+                .astype(np.int32)
+            rounds.append(f)
+        bursts.append(np.stack(rounds))
+    rec["frontier_advance_burst"] = (acks_dev.clone(), bursts[0], quorum)
+    rec["match_index_commit"] = (torch.from_numpy(bursts[0][0]).to(dev),
+                                 quorum)
+    a_dev, host = acks_dev, acks.copy()
+    entry = np.arange(E, dtype=np.int32)[None, :]
+    burst_s, n_rounds = 0.0, 0
+    for fb in bursts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a_dev, commits = rr.frontier_advance_burst(a_dev, fb, quorum)
+        commits = commits.cpu().numpy()
+        burst_s += time.perf_counter() - t0
+        for b, fr in enumerate(fb):
+            host |= entry < fr[:, None]
+            if commits[b] != _np_commit(host, quorum):
+                fail(f"[replay] round {n_rounds}: commit {commits[b]} != "
+                     f"numpy tally {_np_commit(host, quorum)}")
+            mi = int(rr.match_index_commit(torch.from_numpy(fr).to(dev),
+                                           quorum))
+            if mi != int(np.sort(fr)[::-1][quorum - 1]):
+                fail(f"[replay] round {n_rounds}: match_index_commit {mi} "
+                     "!= numpy's quorum-th largest")
+            n_rounds += 1
+    if not np.array_equal(a_dev.cpu().numpy(), host):
+        fail("[replay] the ack matrix after the bursts differs from numpy's")
+    f_last = np.minimum(f + 1000, E - 1).astype(np.int32)
+    a1, c1 = rr.frontier_advance(a_dev, f_last, quorum)
+    host |= entry < f_last[:, None]
+    if int(c1) != _np_commit(host, quorum) \
+            or not np.array_equal(a1.cpu().numpy(), host):
+        fail("[replay] frontier_advance differs from numpy")
+
+    flag = torch.from_numpy(np.random.RandomState(seed).rand(
+        N_MANAGERS, LOG_LEN) < 0.8).to(dev)   # example_inputs' log
+    scans = {}
+    for name, a in (("bench", a1), ("flagship", flag)):
+        got = int(rr.replay_log_scan(a, quorum, SCAN_CHUNK))
+        want = int(rr.replay_commit(a, quorum)[0])
+        if got != want:
+            fail(f"[replay] replay_log_scan on the {name} log: {got} != "
+                 f"replay_commit's {want}")
+        scans[name] = got
+        rec[f"replay_log_scan {name}"] = (a, quorum, SCAN_CHUNK)
+    log(f"[replay] {M}x{E} acks: cold packed upload + unpack "
+        f"{cold_s:.4f} s; {n_rounds} rounds in {N_BURSTS} bursts "
+        f"({burst_s:.4f} s host clock, each with its commits pulled), every "
+        f"commit and the final matrix equal to numpy, every round's "
+        f"match_index_commit equal to numpy's; commit {int(c1)} after one "
+        f"more advance; replay_log_scan (chunk {SCAN_CHUNK}) "
+        f"{scans['bench']} and {scans['flagship']} on the flagship's "
+        f"{N_MANAGERS}x{LOG_LEN} log, equal to replay_commit")
+
+
+def check_replay_kernels(rec):
+    """K10-K13 against their plain versions on the replay phase's inputs;
+    times by CUDA events; bounds from this run's shapes (and, for the scan,
+    the columns this run's commit index makes it read)."""
+    from swarmkit_tpu_torch.ops import bitpack as bp
+    from swarmkit_tpu_torch.ops import raft_replay as rr
+
+    out = {}
+
+    def record(name, err, kernel, plain, nbytes, nops, lib=None,
+               shape=""):
+        if err:
+            fail(f"{name} differs from its plain version ({shape}, err "
+                 f"{err})")
+        ms, plain_ms = _time_pair(kernel, plain)
+        lib_ms = time_ms(lib, 200) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        log(f"[kernels] {name} ({shape}): equal to plain; {ms:.4f} ms vs "
+            f"plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} ms; bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         shape=shape)
+
+    packed, E = rec["unpack_bits"]
+    R, W = packed.shape
+    got, want = bp.unpack_bits(packed, E), bp.unpack_bits_plain(packed, E)
+    record("unpack_bits", int((got.int() - want.int()).abs().max()),
+           lambda: bp.unpack_bits(packed, E),
+           lambda: bp.unpack_bits_plain(packed, E),
+           R * W + R * E, 2 * R * E, shape=f"{R}x{W} -> {R}x{E}")
+
+    acks, fronts, q = rec["frontier_advance_burst"]
+    B, M = fronts.shape
+    E = acks.shape[1]
+    fr_dev = torch.from_numpy(fronts).to(acks.device)
+    ga, gc = rr.frontier_advance_burst(acks, fronts, q)
+    wa, wc = rr.frontier_advance_burst_plain(acks, fr_dev, q)
+    err = max(int((ga.int() - wa.int()).abs().max()),
+              int((gc - wc).abs().max()))
+    # per round and entry: M compares, ORs and adds, one quorum compare
+    record("frontier_advance_burst", err,
+           lambda: rr.frontier_advance_burst(acks, fronts, q),
+           lambda: rr.frontier_advance_burst_plain(acks, fr_dev, q),
+           2 * M * E + 4 * B * M + 4 * B, B * E * (3 * M + 1),
+           shape=f"B={B}, {M}x{E}")
+
+    mi, q = rec["match_index_commit"]
+    M = mi.shape[0]
+    err = abs(int(rr.match_index_commit(mi, q))
+              - int(rr.match_index_commit_plain(mi, q)))
+    record("match_index_commit", err,
+           lambda: rr.match_index_commit(mi, q),
+           lambda: rr.match_index_commit_plain(mi, q), 4 * M + 8,
+           3 * M * M,
+           lib=lambda: torch.kthvalue(mi, M - q + 1).values,
+           shape=f"M={M}, quorum {q}")
+    if int(torch.kthvalue(mi, M - q + 1).values) \
+            != int(rr.match_index_commit(mi, q)):
+        fail("torch.kthvalue does not compute match_index_commit's "
+             "function")
+
+    for key in ("replay_log_scan bench", "replay_log_scan flagship"):
+        a, q, chunk = rec[key]
+        M, E = a.shape
+        got = int(rr.replay_log_scan(a, q, chunk))
+        err = abs(got - int(rr.replay_log_scan_plain(a, q, chunk)))
+        cols = min(E, (got // chunk + 1) * chunk)   # the scan stops there
+        record(key, err, lambda: rr.replay_log_scan(a, q, chunk),
+               lambda: rr.replay_log_scan_plain(a, q, chunk),
+               M * cols + 4, M * cols + cols,
+               shape=f"{M}x{E}, chunk {chunk}, commit {got}")
+    # the kernels line carries the bench log's numbers; the flagship log's
+    # are in the log above
+    out["replay_log_scan"] = out.pop("replay_log_scan bench")
+    del out["replay_log_scan flagship"]
+    return out
+
+
+# ------------------------------------------------------- the int32 guard
+INT32_RESIDENT = (65_537, 16_384)   # nodes, tasks: padded to 131,072 nodes
+INT32_ONE_SHOT = (20_000, 131_072)
+
+
+def int32_group(n_tasks):
+    """One service, no constraints or preferences, one CPU quantum a task."""
+    from swarmkit_tpu_torch.api.objects import Task
+    from swarmkit_tpu_torch.api.types import TaskState
+    from swarmkit_tpu_torch.scheduler.encode import CPU_QUANTUM, TaskGroup
+
+    tasks = []
+    for ti in range(n_tasks):
+        t = Task(id=f"big-{ti:06d}", service_id="svc-big", slot=ti + 1)
+        t.desired_state = TaskState.RUNNING
+        t.status.state = TaskState.PENDING
+        tasks.append(t)
+    tasks[0].spec.resources.reservations.nano_cpus = CPU_QUANTUM
+    for t in tasks[1:]:
+        t.spec = tasks[0].spec
+    return TaskGroup(service_id="svc-big", spec_version=1, tasks=tasks,
+                     ids=[t.id for t in tasks])
+
+
+def phase_int32(seed):
+    """Two ticks past the old N * max(n_tasks) >= 2^31 guard, whose
+    capacity sums stay far below 2^31: a resident tick at 65,537 nodes
+    (131,072 on the card) with a 16,384-task service, and the one-shot
+    entry at 20,000 nodes with a 131,072-task service. Each places every
+    task, equal to the CPU oracle."""
+    from swarmkit_tpu_torch.ops.resident import ResidentPlacement
+    from swarmkit_tpu_torch.scheduler import batch
+    from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder, encode
+
+    for name, (n_nodes, n_tasks) in (("resident", INT32_RESIDENT),
+                                     ("one-shot", INT32_ONE_SHOT)):
+        t0 = time.perf_counter()
+        gc.disable()
+        try:
+            infos = grid_nodes(random.Random(seed), n_nodes)
+            group = int32_group(n_tasks)
+        finally:
+            gc.enable()
+        if name == "resident":
+            enc = IncrementalEncoder()
+            p = enc.encode(infos, [group])
+            rp = ResidentPlacement(enc)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = rp.schedule(p)
+            padded = rp._state[0].shape[0]
+        else:
+            p = encode(infos, [group])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = batch.device_schedule_encoded(p)
+            padded = n_nodes
+        dt = time.perf_counter() - t1
+        if padded * n_tasks < 1 << 31:
+            fail(f"[int32] {name}: {padded} x {n_tasks} does not reach the "
+                 "old guard")
+        if int(counts.sum()) != n_tasks:
+            fail(f"[int32] {name}: placed {int(counts.sum())} of {n_tasks}")
+        if not np.array_equal(counts, batch.cpu_schedule_encoded(p)):
+            fail(f"[int32] {name}: counts differ from the CPU oracle")
+        log(f"[int32] {name}: {n_tasks} tasks on {n_nodes} nodes ({padded} "
+            f"on the card; N * n_tasks = {padded * n_tasks} >= 2^31) all "
+            f"placed, equal to the CPU oracle; tick {dt:.4f} s (host clock), "
+            f"set-up {t1 - t0:.1f} s")
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -1191,6 +1475,14 @@ SOURCES = {
                          "swarmkit_tpu/ops/resident.py:150"),
     "binpack_fill_step": ("swarmkit_tpu_torch/csrc/binpack_fill.cu",
                           "swarmkit_tpu/ops/placement.py:285"),
+    "unpack_bits": ("swarmkit_tpu_torch/csrc/unpack_bits.cu",
+                    "swarmkit_tpu/ops/bitpack.py:26"),
+    "frontier_advance_burst": ("swarmkit_tpu_torch/csrc/frontier_advance.cu",
+                               "swarmkit_tpu/ops/raft_replay.py:95"),
+    "match_index_commit": ("swarmkit_tpu_torch/csrc/match_index_commit.cu",
+                           "swarmkit_tpu/ops/raft_replay.py:118"),
+    "replay_log_scan": ("swarmkit_tpu_torch/csrc/replay_log_scan.cu",
+                        "swarmkit_tpu/ops/raft_replay.py:126"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
@@ -1198,7 +1490,11 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
          "binpack": ("static_mask", "binpack_fill_step", "replay_commit"),
          "steady": ("static_mask", "flat_fill_step", "tree_fill_step",
                     "binpack_fill_step", "resident_delta_scatter",
-                    "counts_window", "sparse_counts", "svc_matrix_build")}
+                    "counts_window", "sparse_counts", "svc_matrix_build"),
+         "replay": ("unpack_bits", "replay_commit", "frontier_advance_burst",
+                    "match_index_commit", "replay_log_scan"),
+         "int32": ("static_mask", "flat_fill_step", "sparse_counts",
+                   "svc_matrix_build")}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -1222,6 +1518,7 @@ def main() -> int:
     t_start = time.perf_counter()
     kind, count = phase_device()
     try:
+        from swarmkit_tpu_torch.ops import bitpack as bp
         from swarmkit_tpu_torch.ops import placement as pl
         from swarmkit_tpu_torch.ops import raft_replay as rr
         from swarmkit_tpu_torch.ops import resident as rs
@@ -1238,7 +1535,11 @@ def main() -> int:
                 "counts_window": rs.counts_window,
                 "sparse_counts": rs.sparse_counts,
                 "svc_matrix_build": rs.svc_matrix_build,
-                "binpack_fill_step": pl.binpack_fill_step}
+                "binpack_fill_step": pl.binpack_fill_step,
+                "unpack_bits": bp.unpack_bits,
+                "frontier_advance_burst": rr.frontier_advance_burst,
+                "match_index_commit": rr.match_index_commit,
+                "replay_log_scan": rr.replay_log_scan}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
@@ -1261,6 +1562,11 @@ def main() -> int:
                               lambda: phase_steady(seed, rec))
     check_steady_placement(rec)
     results.update(check_resident_kernels(rec))
+    replay_rec = {}
+    by_path["replay"] = drive("replay", wrappers,
+                              lambda: phase_replay(seed, replay_rec))
+    results.update(check_replay_kernels(replay_rec))
+    by_path["int32"] = drive("int32", wrappers, lambda: phase_int32(seed))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -31,6 +31,14 @@
 // component costs its steps and nothing more. When q is 0 or the whole
 // capacity, no search runs. Groups depend on each other through the node
 // state, so the host launches one step per group, in order, on one stream.
+//
+// int32 intermediates and their bounds (capsum = the group's capacity sum,
+// taken in 64 bits and refused from 2^31, so every bound below fits):
+//   cap                          <= min(cap, n_tasks) of one node
+//   f, below, base, need, q      <= capsum
+//   smax, tmax, -nsmin, -ntmin   service and total counts of nodes with
+//                                capacity (state, as in the reference)
+//   the key components and the bisection bounds: int64
 #include <climits>
 
 #include "common.cuh"
@@ -60,17 +68,19 @@ struct BinpackKey {
   }
 };
 
-__global__ void __launch_bounds__(FILL_THREADS)
+__global__ void __launch_bounds__(FILL_THREADS, 1)
 binpack_fill_kernel(GroupArgs a, NodeState s, int g, int N, int R, int PV,
-                    int32_t* out, int32_t* cap_s) {
+                    int32_t* out, int32_t* flags, int32_t* cap_s) {
   __shared__ int32_t red32[32];
+  __shared__ long long red64[32];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int32_t svc_row = a.svc_idx[g];
   const int32_t* svc = s.svc_counts + (int64_t)svc_row * N;
 
-  // phase 1: capacities, their sum, the key ranges of nodes with capacity
-  int32_t local = 0, smax = INT_MIN, nsmin = INT_MIN, tmax = INT_MIN,
-          ntmin = INT_MIN;
+  // phase 1: capacities, their sum in 64 bits, the key ranges of nodes
+  // with capacity
+  long long local = 0;
+  int32_t smax = INT_MIN, nsmin = INT_MIN, tmax = INT_MIN, ntmin = INT_MIN;
   for (int n = tid; n < N; n += nt) {
     const int32_t sv = svc[n];
     const int32_t cap = node_cap(a, s, g, n, N, R, PV, sv);
@@ -84,7 +94,9 @@ binpack_fill_kernel(GroupArgs a, NodeState s, int g, int N, int R, int PV,
       ntmin = -t > ntmin ? -t : ntmin;
     }
   }
-  const int32_t capsum = block_sum(local, red32);
+  const long long capsum64 = block_sum(local, red64);
+  if (refuse_overflow(capsum64, flags, g, out + (int64_t)g * N, N)) return;
+  const int32_t capsum = (int32_t)capsum64;  // < 2^31
   smax = block_max(smax, red32);
   nsmin = block_max(nsmin, red32);
   tmax = block_max(tmax, red32);
@@ -153,8 +165,8 @@ extern "C" int skt_binpack_fill_step(
     const void* mask, const void* need_res, const void* n_tasks,
     const void* svc_idx, const void* max_replicas, const void* penalty,
     const void* has_ports, const void* group_ports, void* totals,
-    void* svc_counts, void* avail, void* port_used, void* out, void* scratch,
-    int g, int N, int R, int PV, void* stream) {
+    void* svc_counts, void* avail, void* port_used, void* out, void* flags,
+    void* scratch, int g, int N, int R, int PV, void* stream) {
   skt::GroupArgs a{(const uint8_t*)mask,         (const int32_t*)need_res,
                    (const int32_t*)n_tasks,      (const int32_t*)svc_idx,
                    (const int32_t*)max_replicas, (const uint8_t*)penalty,
@@ -162,6 +174,6 @@ extern "C" int skt_binpack_fill_step(
   skt::NodeState s{(int32_t*)totals, (int32_t*)svc_counts, (int32_t*)avail,
                    (uint8_t*)port_used};
   skt::binpack_fill_kernel<<<1, skt::FILL_THREADS, 0, (cudaStream_t)stream>>>(
-      a, s, g, N, R, PV, (int32_t*)out, (int32_t*)scratch);
+      a, s, g, N, R, PV, (int32_t*)out, (int32_t*)flags, (int32_t*)scratch);
   return (int)cudaGetLastError();
 }

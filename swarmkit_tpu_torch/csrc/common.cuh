@@ -1,8 +1,12 @@
-// Shared device helpers of the placement kernels (flat_fill.cu, tree_fill.cu).
+// Shared device helpers of the placement kernels (flat_fill.cu, tree_fill.cu,
+// binpack_fill.cu).
 //
-// Every sum is int32, as in the JAX reference (which runs without x64):
-// the host wrapper checks N * max(n_tasks) < 2^31 before a launch, so no
-// sum of capacities or fills can wrap.
+// The sums of a group step are int32, as in the JAX reference (which runs
+// without x64). Each is bounded by the group's capacity sum, the sum over
+// its eligible nodes of min(cap, n_tasks), which a step first takes in 64
+// bits: when it reaches 2^31 (where the reference's int32 sums wrap) the
+// step sets the group's overflow flag, places nothing and folds nothing
+// (`refuse_overflow`), and the host raises when it reads the flags.
 #pragma once
 
 #include <cstdint>
@@ -14,7 +18,12 @@ constexpr int32_t UNLIMITED = 1 << 30;     // ops/placement.py UNLIMITED
 constexpr int32_t PENALTY_BASE = 1 << 20;  // scheduler/spread.py PENALTY_BASE
 constexpr int POUR_BITS = 30;              // 31 bisect steps, hi = 1 << 30
 constexpr int32_t SEC_PAD = 1 << 30;       // secondary key off the boundary
-constexpr int FILL_THREADS = 1024;         // one block per group step
+// One block per group step. The fill kernels declare it as
+// __launch_bounds__(FILL_THREADS, 1): with the bound on threads alone ptxas
+// held K2 to 32 registers and spilled in its bisection loops (68 bytes of
+// spill stores); with one resident block it takes the 64 a thread may have.
+constexpr int FILL_THREADS = 1024;
+constexpr long long I32_LIMIT = 1LL << 31;  // capacity sums refused from here
 
 // floor(a / b) for b > 0 (jnp's `//` on int32)
 __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
@@ -94,6 +103,20 @@ __device__ __forceinline__ int32_t block_excl_scan(int32_t v, int32_t* sh,
   return (w > 0 ? sh[w - 1] : 0) + x - v;
 }
 
+// The overflow rule of a group step, block-uniform (`capsum` comes from a
+// block reduction): writes flags[g] (1 when the capacity sum reaches 2^31,
+// else 0, so a flag never outlives its step) and, on overflow, zeroes the
+// group's counts row. The caller returns at once when it answers true.
+__device__ __forceinline__ bool refuse_overflow(long long capsum,
+                                                int32_t* flags, int g,
+                                                int32_t* out_row, int N) {
+  const bool over = capsum >= I32_LIMIT;
+  if (threadIdx.x == 0) flags[g] = over ? 1 : 0;
+  if (over)
+    for (int n = threadIdx.x; n < N; n += blockDim.x) out_row[n] = 0;
+  return over;
+}
+
 // Group-side inputs of one step (read-only), indexed by the group g.
 struct GroupArgs {
   const uint8_t* mask;          // [G, N] static eligibility
@@ -151,7 +174,8 @@ __device__ __forceinline__ int32_t node_cap(const GroupArgs& a,
 
 // The state fold after a group's fill (ops/placement.py:364-373):
 // totals += c, svc_counts[svc] += c, avail -= c * need, port_used |= ports
-// where c > 0.
+// where c > 0. c * need <= avail for every resource the group needs (c is
+// at most avail / need there), and 0 for the others.
 __device__ __forceinline__ void fold_node(const GroupArgs& a,
                                           const NodeState& s, int g, int n,
                                           int N, int R, int PV, int32_t svc_row,

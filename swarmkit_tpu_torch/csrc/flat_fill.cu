@@ -18,21 +18,34 @@
 // second launch or a grid-wide barrier. The remainder ranking needs no sort:
 // with key = sec * N + idx (distinct, int64), the `rem` smallest keys are
 // those <= the rem-th smallest key, found by a bisection on counts.
+//
+// int32 intermediates and their bounds (capsum = the group's capacity sum,
+// taken in 64 bits and refused from 2^31, so every bound below fits):
+//   cap, cnt, base counts       <= min(cap, n_tasks) of one node
+//   filled, placed, q, rem      <= capsum
+//   lo, hi, mid, level          in [0, 2^30] (the bisection's range)
+//   k = PENALTY_BASE + svc      the service's tasks already on the node
+//                               plus 2^20, as in the reference
+//   d = level - k               in [-k, 2^30]
+//   sec = totals + cnt          the node's total after this step, as the
+//                               fold leaves it (SEC_PAD off the boundary)
+//   the remainder keys          int64 (sec * N + n)
 #include "common.cuh"
 
 namespace skt {
 
-__global__ void __launch_bounds__(FILL_THREADS)
+__global__ void __launch_bounds__(FILL_THREADS, 1)
 flat_fill_kernel(GroupArgs a, NodeState s, int g, int N, int R, int PV,
-                 int32_t* out, int32_t* cap_s, int32_t* k_s) {
+                 int32_t* out, int32_t* flags, int32_t* cap_s,
+                 int32_t* k_s) {
   __shared__ int32_t red32[32];
   __shared__ long long red64[32];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int32_t svc_row = a.svc_idx[g];
   const int32_t* svc = s.svc_counts + (int64_t)svc_row * N;
 
-  // phase 1: capacities and primary keys
-  int32_t local = 0;
+  // phase 1: capacities, primary keys, the capacity sum in 64 bits
+  long long local = 0;
   for (int n = tid; n < N; n += nt) {
     const int32_t sv = svc[n];
     const int32_t cap = node_cap(a, s, g, n, N, R, PV, sv);
@@ -40,7 +53,9 @@ flat_fill_kernel(GroupArgs a, NodeState s, int g, int N, int R, int PV,
     k_s[n] = (a.penalty[(int64_t)g * N + n] ? PENALTY_BASE : 0) + sv;
     local += cap;
   }
-  const int32_t capsum = block_sum(local, red32);
+  const long long capsum64 = block_sum(local, red64);
+  if (refuse_overflow(capsum64, flags, g, out + (int64_t)g * N, N)) return;
+  const int32_t capsum = (int32_t)capsum64;  // < 2^31
   const int32_t ntasks = a.n_tasks[g];
   const int32_t q = ntasks < capsum ? ntasks : capsum;
 
@@ -122,8 +137,8 @@ extern "C" int skt_flat_fill_step(
     const void* mask, const void* need_res, const void* n_tasks,
     const void* svc_idx, const void* max_replicas, const void* penalty,
     const void* has_ports, const void* group_ports, void* totals,
-    void* svc_counts, void* avail, void* port_used, void* out, void* scratch,
-    int g, int N, int R, int PV, void* stream) {
+    void* svc_counts, void* avail, void* port_used, void* out, void* flags,
+    void* scratch, int g, int N, int R, int PV, void* stream) {
   skt::GroupArgs a{(const uint8_t*)mask,         (const int32_t*)need_res,
                    (const int32_t*)n_tasks,      (const int32_t*)svc_idx,
                    (const int32_t*)max_replicas, (const uint8_t*)penalty,
@@ -132,6 +147,6 @@ extern "C" int skt_flat_fill_step(
                    (uint8_t*)port_used};
   int32_t* sc = (int32_t*)scratch;
   skt::flat_fill_kernel<<<1, skt::FILL_THREADS, 0, (cudaStream_t)stream>>>(
-      a, s, g, N, R, PV, (int32_t*)out, sc, sc + N);
+      a, s, g, N, R, PV, (int32_t*)out, (int32_t*)flags, sc, sc + N);
   return (int)cudaGetLastError();
 }

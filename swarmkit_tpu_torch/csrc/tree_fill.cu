@@ -21,16 +21,29 @@
 // needs no sort: with key = sec * N + idx (distinct, int64) the leaf's `rem`
 // smallest boundary keys are those <= its rem-th smallest, found by a
 // per-leaf bisection on counts.
+//
+// int32 intermediates and their bounds (capsum = the group's capacity sum,
+// taken in 64 bits and refused from 2^31, so every bound below fits):
+//   cap_s, c, gv                 <= min(cap, n_tasks) of one node
+//   cc, capp, qq, quota, newq,
+//   fil, off (a leaf's rem)      <= capsum (sums over a branch's nodes)
+//   lo, hi, mid, lvl             in [0, 2^30] (the bisections' range)
+//   kc (a branch's service
+//   count), k_s = PENALTY_BASE
+//   + svc                        the service's tasks already placed, plus
+//                                2^20, as in the reference
+//   cnt, cum, par                <= N (node counts, flag ranks, branch ids)
+//   the leaf remainder keys      int64 ((totals + c) * N + n)
 #include "common.cuh"
 
 namespace skt {
 
 constexpr int TREE_I32_ARRAYS = 16;  // int32 scratch arrays of N each
 
-__global__ void __launch_bounds__(FILL_THREADS)
+__global__ void __launch_bounds__(FILL_THREADS, 1)
 tree_fill_kernel(GroupArgs a, NodeState s, const int32_t* spread_rank, int g,
-                 int N, int R, int PV, int L, int32_t* out, int32_t* sc,
-                 long long* sc64) {
+                 int N, int R, int PV, int L, int32_t* out, int32_t* flags,
+                 int32_t* sc, long long* sc64) {
   __shared__ int32_t red32[32];
   __shared__ long long red64[32];
   __shared__ int32_t scan_sh[32];
@@ -58,7 +71,7 @@ tree_fill_kernel(GroupArgs a, NodeState s, const int32_t* spread_rank, int g,
   const int32_t* svc = s.svc_counts + (int64_t)svc_row * N;
   const int32_t* ranks = spread_rank + (int64_t)g * L * N;
 
-  int32_t local = 0;
+  long long local = 0;  // the capacity sum, in 64 bits
   for (int n = tid; n < N; n += nt) {
     const int32_t sv = svc[n];
     const int32_t cap = node_cap(a, s, g, n, N, R, PV, sv);
@@ -67,7 +80,9 @@ tree_fill_kernel(GroupArgs a, NodeState s, const int32_t* spread_rank, int g,
     local += cap;
     quota[n] = 0;
   }
-  const int32_t capsum = block_sum(local, red32);
+  const long long capsum64 = block_sum(local, red64);
+  if (refuse_overflow(capsum64, flags, g, out + (int64_t)g * N, N)) return;
+  const int32_t capsum = (int32_t)capsum64;  // < 2^31
   if (tid == 0) {
     const int32_t ntasks = a.n_tasks[g];
     quota[0] = ntasks < capsum ? ntasks : capsum;  // a single root segment
@@ -293,8 +308,8 @@ extern "C" int skt_tree_fill_step(
     const void* svc_idx, const void* max_replicas, const void* penalty,
     const void* has_ports, const void* group_ports, const void* spread_rank,
     void* totals, void* svc_counts, void* avail, void* port_used, void* out,
-    void* scratch, void* scratch64, int g, int N, int R, int PV, int L,
-    void* stream) {
+    void* flags, void* scratch, void* scratch64, int g, int N, int R, int PV,
+    int L, void* stream) {
   skt::GroupArgs a{(const uint8_t*)mask,         (const int32_t*)need_res,
                    (const int32_t*)n_tasks,      (const int32_t*)svc_idx,
                    (const int32_t*)max_replicas, (const uint8_t*)penalty,
@@ -303,6 +318,6 @@ extern "C" int skt_tree_fill_step(
                    (uint8_t*)port_used};
   skt::tree_fill_kernel<<<1, skt::FILL_THREADS, 0, (cudaStream_t)stream>>>(
       a, s, (const int32_t*)spread_rank, g, N, R, PV, L, (int32_t*)out,
-      (int32_t*)scratch, (long long*)scratch64);
+      (int32_t*)flags, (int32_t*)scratch, (long long*)scratch64);
   return (int)cudaGetLastError();
 }

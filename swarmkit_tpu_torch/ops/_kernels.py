@@ -34,10 +34,10 @@ ENTRIES = {
         "skt_static_mask": [_P] * 10 + [_I] * 8 + [_P],
     },
     "flat_fill": {
-        "skt_flat_fill_step": [_P] * 14 + [_I] * 4 + [_P],
+        "skt_flat_fill_step": [_P] * 15 + [_I] * 4 + [_P],
     },
     "tree_fill": {
-        "skt_tree_fill_step": [_P] * 16 + [_I] * 5 + [_P],
+        "skt_tree_fill_step": [_P] * 17 + [_I] * 5 + [_P],
         "skt_tree_fill_scratch_i32": [],
     },
     "replay_commit": {
@@ -57,7 +57,19 @@ ENTRIES = {
         "skt_svc_matrix_build": [_P] * 3 + [ctypes.c_longlong, _I, _P],
     },
     "binpack_fill": {
-        "skt_binpack_fill_step": [_P] * 14 + [_I] * 4 + [_P],
+        "skt_binpack_fill_step": [_P] * 15 + [_I] * 4 + [_P],
+    },
+    "unpack_bits": {
+        "skt_unpack_bits": [_P] * 2 + [_I] * 3 + [_P],
+    },
+    "frontier_advance": {
+        "skt_frontier_advance_burst": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "match_index_commit": {
+        "skt_match_index_commit": [_P] * 3 + [_I, _P],
+    },
+    "replay_log_scan": {
+        "skt_replay_log_scan": [_P] * 3 + [_I] * 3 + [_P],
     },
 }
 

@@ -27,6 +27,14 @@ one to the wrapper's `launches` counter. Groups depend on each other through
 the node state, so the host launches one step per group, in order, on the
 current stream; nothing synchronises between them.
 
+The int32 contract: every int32 sum of a group step is bounded by the
+group's capacity sum, the sum over its eligible nodes of min(cap, n_tasks),
+so the reference (which has no x64) is exact while that sum stays below
+2^31. Each step takes the sum in 64 bits and writes the group's overflow
+flag (flags[g], 1 from 2^31 on, when the group places and folds nothing);
+the entries raise `ValueError` ("... >= 2^31") when they read a set flag
+with the counts.
+
 `schedule_core` is that loop on tensors already on the device, folding into
 a caller-owned `FillState` in place: the one-shot entries below call it on
 clones of their inputs, and the device-resident tick (`ops/resident.py`) on
@@ -51,6 +59,7 @@ UNLIMITED = 1 << 30
 _POUR_BITS = 30          # water-level search range: 31 bisect steps
 _SEC_PAD = 1 << 30       # secondary key of nodes off the boundary
 _I32_MAX = (1 << 31) - 1
+_I32_LIMIT = 1 << 31     # a group's capacity sum is refused from here
 
 
 class FillTables(NamedTuple):
@@ -344,35 +353,47 @@ def _binpack_fill_plain(cap, pen, svc, total, n_tasks):
     return torch.empty_like(cap).scatter_(0, order, counts_sorted)
 
 
-def flat_fill_step_plain(t: FillTables, s: FillState, g: int, out) -> None:
-    """Plain PyTorch group step, no spread levels: writes out[g], folds s."""
+def _step_plain(fill, t: FillTables, s: FillState, g: int, out,
+                flags) -> None:
+    """A plain group step around `fill(cap, svc)`: the capacity sum in
+    int64 decides the overflow flag; an overflowing group places and folds
+    nothing (its fill ran on wrapped sums, as the reference's would, and
+    is dropped without a branch on the device's data)."""
     cap, svc = _node_caps_plain(t, s, g)
-    counts = _flat_water_fill_plain(cap, t.penalty[g], svc, s.totals,
-                                    t.n_tasks[g])
+    over = cap.sum(dtype=torch.int64) >= _I32_LIMIT
+    counts = torch.where(over, 0, fill(cap, svc)).to(torch.int32)
+    flags[g] = over.to(torch.int32)
     out[g] = counts
     _fold_plain(t, s, g, counts)
 
 
-def tree_fill_step_plain(t: FillTables, s: FillState, g: int, out) -> None:
-    """Plain PyTorch group step with spread levels: writes out[g], folds s."""
-    cap, svc = _node_caps_plain(t, s, g)
-    counts = _tree_water_fill_plain(cap, t.penalty[g], svc, s.totals,
-                                    t.n_tasks[g], t.spread_rank[g])
-    out[g] = counts
-    _fold_plain(t, s, g, counts)
+def flat_fill_step_plain(t: FillTables, s: FillState, g: int, out,
+                         flags) -> None:
+    """Plain PyTorch group step, no spread levels: writes out[g] and
+    flags[g], folds s."""
+    _step_plain(lambda cap, svc: _flat_water_fill_plain(
+        cap, t.penalty[g], svc, s.totals, t.n_tasks[g]), t, s, g, out, flags)
 
 
-def binpack_fill_step_plain(t: FillTables, s: FillState, g: int,
-                            out) -> None:
-    """Plain PyTorch binpack group step: writes out[g], folds s."""
-    cap, svc = _node_caps_plain(t, s, g)
-    counts = _binpack_fill_plain(cap, t.penalty[g], svc, s.totals,
-                                 t.n_tasks[g])
-    out[g] = counts
-    _fold_plain(t, s, g, counts)
+def tree_fill_step_plain(t: FillTables, s: FillState, g: int, out,
+                         flags) -> None:
+    """Plain PyTorch group step with spread levels: writes out[g] and
+    flags[g], folds s."""
+    _step_plain(lambda cap, svc: _tree_water_fill_plain(
+        cap, t.penalty[g], svc, s.totals, t.n_tasks[g], t.spread_rank[g]),
+        t, s, g, out, flags)
 
 
-def _check_fill(t: FillTables, s: FillState, out) -> tuple[int, ...]:
+def binpack_fill_step_plain(t: FillTables, s: FillState, g: int, out,
+                            flags) -> None:
+    """Plain PyTorch binpack group step: writes out[g] and flags[g],
+    folds s."""
+    _step_plain(lambda cap, svc: _binpack_fill_plain(
+        cap, t.penalty[g], svc, s.totals, t.n_tasks[g]), t, s, g, out, flags)
+
+
+def _check_fill(t: FillTables, s: FillState, out,
+                flags) -> tuple[int, ...]:
     G, N = t.mask.shape
     R, PV = t.need_res.shape[1], t.group_ports.shape[1]
     S, L = s.svc_counts.shape[0], t.spread_rank.shape[1]
@@ -390,7 +411,8 @@ def _check_fill(t: FillTables, s: FillState, out) -> tuple[int, ...]:
             (s.svc_counts, "svc_counts", torch.int32, (S, N)),
             (s.avail, "avail", torch.int32, (N, R)),
             (s.port_used, "port_used", torch.bool, (N, PV)),
-            (out, "out", torch.int32, (G, N))):
+            (out, "out", torch.int32, (G, N)),
+            (flags, "flags", torch.int32, (G,))):
         _expect(x, name, dtype, shape)
     return G, N, R, PV, L
 
@@ -406,19 +428,20 @@ def _state_ptrs(s: FillState):
             _ptr(s.port_used))
 
 
-def flat_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
-    """Group g's step with no spread levels: writes out[g] and folds the
-    counts into s. Plain version for CPU tensors, kernel K2
-    (csrc/flat_fill.cu) for CUDA tensors."""
-    if _route(*t, *s, out) == "plain":
-        return flat_fill_step_plain(t, s, g, out)
-    G, N, R, PV, _ = _check_fill(t, s, out)
+def flat_fill_step(t: FillTables, s: FillState, g: int, out,
+                   flags) -> None:
+    """Group g's step with no spread levels: writes out[g] and the
+    overflow flag flags[g], and folds the counts into s. Plain version for
+    CPU tensors, kernel K2 (csrc/flat_fill.cu) for CUDA tensors."""
+    if _route(*t, *s, out, flags) == "plain":
+        return flat_fill_step_plain(t, s, g, out, flags)
+    G, N, R, PV, _ = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
         raise IndexError(f"group {g} out of range for {G} groups")
     scratch = torch.empty(2 * N, dtype=torch.int32, device=out.device)
     rc = _kernels.lib("flat_fill").skt_flat_fill_step(
-        *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(scratch),
-        g, N, R, PV, _kernels.stream_of(out))
+        *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(flags),
+        _ptr(scratch), g, N, R, PV, _kernels.stream_of(out))
     _kernels.check(rc, "flat_fill_step")
     flat_fill_step.launches += 1
 
@@ -426,13 +449,14 @@ def flat_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
 flat_fill_step.launches = 0
 
 
-def tree_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
-    """Group g's step with spread levels (LMAX > 0): writes out[g] and
-    folds the counts into s. Plain version for CPU tensors, kernel K3
-    (csrc/tree_fill.cu) for CUDA tensors."""
-    if _route(*t, *s, out) == "plain":
-        return tree_fill_step_plain(t, s, g, out)
-    G, N, R, PV, L = _check_fill(t, s, out)
+def tree_fill_step(t: FillTables, s: FillState, g: int, out,
+                   flags) -> None:
+    """Group g's step with spread levels (LMAX > 0): writes out[g] and the
+    overflow flag flags[g], and folds the counts into s. Plain version for
+    CPU tensors, kernel K3 (csrc/tree_fill.cu) for CUDA tensors."""
+    if _route(*t, *s, out, flags) == "plain":
+        return tree_fill_step_plain(t, s, g, out, flags)
+    G, N, R, PV, L = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
         raise IndexError(f"group {g} out of range for {G} groups")
     if L == 0:
@@ -443,7 +467,7 @@ def tree_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
     scratch64 = torch.empty(2 * N, dtype=torch.int64, device=out.device)
     rc = cdll.skt_tree_fill_step(
         *_group_ptrs(t), _ptr(t.spread_rank), *_state_ptrs(s), _ptr(out),
-        _ptr(scratch), _ptr(scratch64), g, N, R, PV, L,
+        _ptr(flags), _ptr(scratch), _ptr(scratch64), g, N, R, PV, L,
         _kernels.stream_of(out))
     _kernels.check(rc, "tree_fill_step")
     tree_fill_step.launches += 1
@@ -452,19 +476,20 @@ def tree_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
 tree_fill_step.launches = 0
 
 
-def binpack_fill_step(t: FillTables, s: FillState, g: int, out) -> None:
+def binpack_fill_step(t: FillTables, s: FillState, g: int, out,
+                      flags) -> None:
     """Group g's binpack step (spread levels ignored): writes out[g] and
-    folds the counts into s. Plain version for CPU tensors, kernel K9
-    (csrc/binpack_fill.cu) for CUDA tensors."""
-    if _route(*t, *s, out) == "plain":
-        return binpack_fill_step_plain(t, s, g, out)
-    G, N, R, PV, _ = _check_fill(t, s, out)
+    the overflow flag flags[g], and folds the counts into s. Plain version
+    for CPU tensors, kernel K9 (csrc/binpack_fill.cu) for CUDA tensors."""
+    if _route(*t, *s, out, flags) == "plain":
+        return binpack_fill_step_plain(t, s, g, out, flags)
+    G, N, R, PV, _ = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
         raise IndexError(f"group {g} out of range for {G} groups")
     scratch = torch.empty(N, dtype=torch.int32, device=out.device)
     rc = _kernels.lib("binpack_fill").skt_binpack_fill_step(
-        *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(scratch),
-        g, N, R, PV, _kernels.stream_of(out))
+        *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(flags),
+        _ptr(scratch), g, N, R, PV, _kernels.stream_of(out))
     _kernels.check(rc, "binpack_fill_step")
     binpack_fill_step.launches += 1
 
@@ -473,10 +498,21 @@ binpack_fill_step.launches = 0
 
 
 # ------------------------------------------------------------ entries
+def raise_on_overflow(flags) -> None:
+    """Raise ValueError when a group's overflow flag is set (flags: the
+    steps' int32[G], numpy or a host tensor)."""
+    bad = np.flatnonzero(np.asarray(flags))
+    if bad.size:
+        raise ValueError(
+            f"groups {bad.tolist()}: the capacity sum over eligible nodes "
+            "of min(cap, n_tasks) is >= 2^31, where the reference's int32 "
+            "sums wrap")
+
+
 def _check_ranges(n_tasks, svc_idx, spread_rank, N: int, S: int) -> int:
-    """Host checks on values the kernels index or sum with, in one device
-    round trip; returns max(n_tasks). N * max(n_tasks) < 2^31 keeps every
-    int32 sum of capacities and fills from wrapping."""
+    """Host checks on values the kernels index with, in one device round
+    trip; returns max(n_tasks). Sums that could wrap are the steps' to flag
+    (`raise_on_overflow`)."""
     G = n_tasks.shape[0]
     if G == 0:
         return 0
@@ -485,9 +521,6 @@ def _check_ranges(n_tasks, svc_idx, spread_rank, N: int, S: int) -> int:
         stats += [spread_rank.min(), spread_rank.max()]
     vals = torch.stack([v.to(torch.int64) for v in stats]).tolist()
     max_nt = vals[0]
-    if N * max(max_nt, 0) >= 1 << 31:
-        raise ValueError(f"N * max(n_tasks) = {N * max_nt} >= 2^31: int32 "
-                         "capacity sums could wrap")
     if vals[1] < 0 or vals[2] >= S:
         raise ValueError(f"svc_idx outside [0, {S})")
     if len(vals) > 3 and (vals[3] < 0 or vals[4] >= N):
@@ -499,18 +532,22 @@ def schedule_core(ready, node_val, node_plat, node_plugins, extra_mask,
                   constraints, plat_req, req_plugins, vol_topo, n_tasks,
                   svc_idx, need_res, max_replicas, penalty, has_ports,
                   group_ports, spread_rank, state: FillState,
-                  strategy: int = 0) -> torch.Tensor:
+                  strategy: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The placement on tensors already on one device: K1, then one step
     per group, in order: K9 for binpack (`strategy=1`), else K2 or K3 as
-    LMAX, the spread table's depth as given, says. Folds every group's counts into the
-    caller-owned `state` IN PLACE (the counterpart of the JAX resident
-    tick's donated state) and returns counts int32[G, N].
+    LMAX, the spread table's depth as given, says. Folds every group's
+    counts into the caller-owned `state` IN PLACE (the counterpart of the
+    JAX resident tick's donated state) and returns (counts int32[G, N],
+    overflow flags int32[G]); the caller reads the flags with the counts
+    (`raise_on_overflow`).
 
-    No host round trip: the value checks the kernels rely on (svc_idx in
-    [0, S), spread_rank in [0, N), N * max(n_tasks) < 2^31) are the
-    caller's, made on the host before the upload or by `_check_ranges`."""
+    No host round trip: the value checks the kernels index with (svc_idx
+    in [0, S), spread_rank in [0, N)) are the caller's, made on the host
+    before the upload or by `_check_ranges`."""
     G, N = extra_mask.shape
-    counts = torch.zeros((G, N), dtype=torch.int32, device=extra_mask.device)
+    dev = extra_mask.device
+    counts = torch.zeros((G, N), dtype=torch.int32, device=dev)
+    flags = torch.zeros(G, dtype=torch.int32, device=dev)
     if G and N:
         mask = static_mask(ready, node_val, node_plat, node_plugins,
                            constraints, plat_req, req_plugins, extra_mask,
@@ -522,8 +559,8 @@ def schedule_core(ready, node_val, node_plat, node_plugins, extra_mask,
         else:
             step = tree_fill_step if spread_rank.shape[1] else flat_fill_step
         for g in range(G):
-            step(tables, state, g, counts)
-    return counts
+            step(tables, state, g, counts, flags)
+    return counts, flags
 
 
 def _schedule(args, strategy: int, device):
@@ -540,11 +577,12 @@ def _schedule(args, strategy: int, device):
     state = FillState(total0.clone(), svc_count0.clone(), avail_res.clone(),
                       port_used0.clone())
     # LMAX is the problem's, as in the reference (placement.py:225)
-    counts = schedule_core(ready, node_val, node_plat, node_plugins,
+    counts, flags = schedule_core(ready, node_val, node_plat, node_plugins,
                            extra_mask, constraints, plat_req, req_plugins,
                            vol_topo, n_tasks, svc_idx, need_res, max_replicas,
                            penalty, has_ports, group_ports, spread_rank, state,
                            strategy)
+    raise_on_overflow(flags.cpu())
     return counts, state, max_nt
 
 
@@ -553,7 +591,7 @@ def schedule_groups(*args, strategy: int = 0, device=None):
     svc_counts int32[S, N]). `args` are the KERNEL_ARG_FIELDS arrays (numpy
     or tensors; `vol_topo` may be left out); strategy 0 is spread, 1
     binpack. Runs on the card unless `device="cpu"`; the inputs are not
-    modified."""
+    modified. Raises ValueError when a group's capacity sum reaches 2^31."""
     counts, state, _ = _schedule(args, strategy, device)
     return counts, state.totals, state.svc_counts
 

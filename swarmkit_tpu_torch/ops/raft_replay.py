@@ -1,24 +1,58 @@
 """Raft log-replay fast path: batched quorum tally + commit-index advance
-(the port of the JAX package's `ops/raft_replay.replay_commit`).
+(the port of the JAX package's `ops/raft_replay.py`).
 
     tally[e]     = Σ_m ack[m, e]
     committed[e] = tally[e] >= quorum
     commit       = length of the True-prefix of committed
 
 Raft's commit rule is prefix-monotone: an entry is committed only if every
-earlier entry is, hence the prefix reduction. `replay_commit` runs kernel K4
-(csrc/replay_commit.cu) for CUDA tensors and its plain PyTorch version for
-CPU tensors. The other replay functions of the JAX package (frontier
-advance, match-index commit, the streaming scan, the sharded tally) are not
-ported yet.
+earlier entry is, hence the prefix reduction. Each function runs its kernel
+for CUDA tensors and its plain PyTorch version for CPU tensors; a tensor on
+any other device raises. Results are int32, as in the reference.
+
+  * `replay_commit` (K4, csrc/replay_commit.cu): the tally;
+  * `unpack_acks` (K10, csrc/unpack_bits.cu): the cold bit-packed ack
+    upload;
+  * `frontier_advance_burst` (K11, csrc/frontier_advance.cu): B rounds of
+    frontier ORs on the resident matrix, one commit index each, in one
+    launch; `frontier_advance` is the burst with B = 1;
+  * `match_index_commit` (K12, csrc/match_index_commit.cu): the
+    leader-side rule, the quorum-th largest match index;
+  * `replay_log_scan` (K13, csrc/replay_log_scan.cu): the streaming tally.
+
+The sharded tally (`sharded_replay_commit`) waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _kernels
+from .bitpack import unpack_bits
 
 
+def _route(t, what: str) -> str:
+    dev = t.device
+    if dev.type == "cpu":
+        return "plain"
+    if dev.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {dev}")
+    return "kernel"
+
+
+def _quorum(quorum, dev):
+    return torch.as_tensor(quorum, dtype=torch.int32, device=dev).reshape(1)
+
+
+def _check_acks(acks) -> tuple[int, int]:
+    if acks.dtype != torch.bool or acks.dim() != 2:
+        raise TypeError(f"acks: expected bool[M, E], got {acks.dtype}"
+                        f"{list(acks.shape)}")
+    if not acks.is_contiguous():
+        raise ValueError("acks: not contiguous")
+    return acks.shape
+
+
+# -------------------------------------------------------------- K4 replay
 def replay_commit_plain(acks, quorum):
     """Plain PyTorch replay: (commit_index int32 scalar, committed bool[E])."""
     tally = acks.to(torch.int32).sum(dim=0, dtype=torch.int32)
@@ -33,18 +67,11 @@ def replay_commit(acks, quorum):
     scalar tensor, committed bool[E]); commit_index is the number of
     committed entries (0 == nothing committed)."""
     dev = acks.device
-    if dev.type == "cpu":
+    if _route(acks, "replay") == "plain":
         return replay_commit_plain(
             acks, torch.as_tensor(quorum, dtype=torch.int32))
-    if dev.type != "cuda":
-        raise ValueError(f"no replay kernel for device {dev}")
-    if acks.dtype != torch.bool or acks.dim() != 2:
-        raise TypeError(f"acks: expected bool[M, E], got {acks.dtype}"
-                        f"{list(acks.shape)}")
-    if not acks.is_contiguous():
-        raise ValueError("acks: not contiguous")
-    M, E = acks.shape
-    q = torch.as_tensor(quorum, dtype=torch.int32, device=dev).reshape(1)
+    M, E = _check_acks(acks)
+    q = _quorum(quorum, dev)
     commit = torch.full((1,), E, dtype=torch.int32, device=dev)
     committed = torch.empty(E, dtype=torch.bool, device=dev)
     if E == 0:
@@ -58,3 +85,157 @@ def replay_commit(acks, quorum):
 
 
 replay_commit.launches = 0
+
+
+# ----------------------------------------------------------- K10 unpack
+def unpack_acks(packed, n_entries: int):
+    """Bit-packed ack upload -> the bool[M, E] ack matrix on packed's
+    device: packed uint8[M, ceil(E/8)] (`bitpack.pack_bits` on the host)
+    ships 8x fewer bytes than the matrix and unpacks there (K10)."""
+    return unpack_bits(packed, n_entries)
+
+
+# -------------------------------------------------- K11 frontier advance
+def frontier_advance_burst_plain(acks, frontiers_b, quorum):
+    """Plain PyTorch burst, the reference's scan round by round: (acks',
+    commits int32[B])."""
+    q = torch.as_tensor(quorum, dtype=torch.int32, device=acks.device)
+    entry = torch.arange(acks.shape[1], dtype=torch.int32,
+                         device=acks.device)[None, :]
+    commits = torch.zeros(frontiers_b.shape[0], dtype=torch.int32,
+                          device=acks.device)
+    for b, fr in enumerate(frontiers_b):
+        acks = acks | (entry < fr[:, None])
+        commits[b] = replay_commit_plain(acks, q)[0]
+    return acks, commits
+
+
+def frontier_advance_burst(acks, frontiers_b, quorum):
+    """A burst of frontier advances: round b ORs `arange(E) <
+    frontiers_b[b, m]` into row m of the ack matrix and takes the commit
+    index of the result. acks: bool[M, E] (left as it is); frontiers_b:
+    int32[B, M] (numpy or a tensor, moved to acks' device). Returns (acks'
+    bool[M, E], commits int32[B]), the plain version for CPU acks, kernel
+    K11 (csrc/frontier_advance.cu, one launch a burst) for CUDA acks."""
+    dev = acks.device
+    route = _route(acks, "frontier advance")
+    fronts = torch.as_tensor(frontiers_b, dtype=torch.int32).to(dev)
+    M, E = _check_acks(acks) if route == "kernel" else acks.shape
+    if fronts.dim() != 2 or fronts.shape[1] != M:
+        raise ValueError(f"frontiers_b: expected int32[B, {M}], got "
+                         f"{list(fronts.shape)}")
+    if route == "plain":
+        return frontier_advance_burst_plain(acks, fronts, quorum)
+    fronts = fronts.contiguous()
+    B = fronts.shape[0]
+    q = _quorum(quorum, dev)
+    commits = torch.full((B,), E, dtype=torch.int32, device=dev)
+    out = torch.empty_like(acks)
+    if E == 0:
+        return out, commits
+    rc = _kernels.lib("frontier_advance").skt_frontier_advance_burst(
+        acks.data_ptr(), fronts.data_ptr(), q.data_ptr(), commits.data_ptr(),
+        out.data_ptr(), M, E, B, _kernels.stream_of(acks))
+    _kernels.check(rc, "frontier_advance_burst")
+    frontier_advance_burst.launches += 1
+    return out, commits
+
+
+frontier_advance_burst.launches = 0
+
+
+def frontier_advance(acks, frontier, quorum):
+    """One round of the frontier advance on the resident ack matrix: ORs
+    `arange(E) < frontier[m]` into row m (frontier int32[M]) and returns
+    (acks', commit int32 scalar). The burst with B = 1 (K11 on the card)."""
+    fronts = torch.as_tensor(frontier, dtype=torch.int32).reshape(1, -1)
+    acks, commits = frontier_advance_burst(acks, fronts, quorum)
+    return acks, commits[0]
+
+
+# ------------------------------------------------- K12 match-index commit
+def match_index_commit_plain(match_index, quorum):
+    """Plain PyTorch leader-side rule: the quorum-th largest match index,
+    indexed as the reference's `sorted_desc[quorum - 1]` is."""
+    M = match_index.shape[0]
+    q = torch.as_tensor(quorum, dtype=torch.int64, device=match_index.device)
+    i = q - 1
+    i = torch.where(i < 0, i + M, i).clamp(0, M - 1)
+    return torch.sort(match_index, descending=True).values[i]
+
+
+def match_index_commit(match_index, quorum):
+    """Commit index from per-manager match indices int32[M] (the
+    leader-side rule: the quorum-th largest). The index follows the
+    reference's `sorted_desc[quorum - 1]` on every quorum: a negative index
+    wraps once, then it is clamped into [0, M - 1], so quorum 0 and quorum
+    > M give the smallest value. Returns an int32 scalar tensor: the plain
+    version for CPU tensors, kernel K12 (csrc/match_index_commit.cu) for
+    CUDA tensors.
+
+    The reference sorts descending as `-sort(-x)`, which misorders
+    INT32_MIN (its negation wraps to itself); the port orders it as the
+    smallest value. A match index lies in [0, 2^31 - 1], where the two
+    agree."""
+    if match_index.dtype != torch.int32 or match_index.dim() != 1:
+        raise TypeError(f"match_index: expected int32[M], got "
+                        f"{match_index.dtype}{list(match_index.shape)}")
+    if match_index.shape[0] == 0:
+        raise ValueError("match_index: no managers")
+    dev = match_index.device
+    if _route(match_index, "match-index commit") == "plain":
+        return match_index_commit_plain(match_index, quorum)
+    mi = match_index.contiguous()
+    q = _quorum(quorum, dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = _kernels.lib("match_index_commit").skt_match_index_commit(
+        mi.data_ptr(), q.data_ptr(), out.data_ptr(), mi.shape[0],
+        _kernels.stream_of(mi))
+    _kernels.check(rc, "match_index_commit")
+    match_index_commit.launches += 1
+    return out[0]
+
+
+match_index_commit.launches = 0
+
+
+# ---------------------------------------------------- K13 streaming scan
+def replay_log_scan_plain(acks, quorum, chunk: int = 65536):
+    """Plain PyTorch streaming replay, the reference's chunked scan: chunk
+    columns at a time, carrying the 'prefix still unbroken' flag."""
+    q = torch.as_tensor(quorum, dtype=torch.int32, device=acks.device)
+    total = torch.zeros((), dtype=torch.int32, device=acks.device)
+    alive = torch.ones((), dtype=torch.int32, device=acks.device)
+    for c0 in range(0, acks.shape[1], chunk):
+        tally = acks[:, c0:c0 + chunk].to(torch.int32).sum(
+            dim=0, dtype=torch.int32)
+        prefix = torch.cumprod((tally >= q).to(torch.int32), dim=0) * alive
+        total += prefix.sum(dtype=torch.int32)
+        alive = alive * prefix[-1]
+    return total
+
+
+def replay_log_scan(acks, quorum, chunk: int = 65536):
+    """The commit index of `replay_commit` (an int32 scalar tensor), with
+    peak scratch O(M x chunk): the tally streams chunk columns at a time,
+    with no [E] tally and no committed mask. The plain version for CPU
+    acks, kernel K13 (csrc/replay_log_scan.cu) for CUDA acks."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    dev = acks.device
+    if _route(acks, "replay scan") == "plain":
+        return replay_log_scan_plain(acks, quorum, chunk)
+    M, E = _check_acks(acks)
+    q = _quorum(quorum, dev)
+    commit = torch.full((1,), E, dtype=torch.int32, device=dev)
+    if E == 0:
+        return commit[0]
+    rc = _kernels.lib("replay_log_scan").skt_replay_log_scan(
+        acks.data_ptr(), q.data_ptr(), commit.data_ptr(), M, E, chunk,
+        _kernels.stream_of(acks))
+    _kernels.check(rc, "replay_log_scan")
+    replay_log_scan.launches += 1
+    return commit[0]
+
+
+replay_log_scan.launches = 0

@@ -62,6 +62,7 @@ from .placement import (
     _expect,
     _ptr,
     _route,
+    raise_on_overflow,
     schedule_core,
 )
 
@@ -259,16 +260,20 @@ class PendingCounts:
     """Handle to a dispatched tick's counts, the copy to the host already
     under way.
 
-    On the card the window (dense) or the (idx, values) pair (sparse) is
-    copied into pinned host memory without blocking, and a CUDA event is
-    recorded after the copy; `get()` waits on that event only. On the CPU
-    the tensors are the result and nothing waits."""
+    `tensors` is the window (dense) or the (idx, values) pair (sparse),
+    then the steps' overflow flags int32[G]. On the card all of them are
+    copied into pinned host memory without blocking, and one CUDA event is
+    recorded after the copies; `get()` waits on that event only. On the CPU
+    the tensors are the result and nothing waits. `get()` raises ValueError
+    when a flag is set, after calling `on_refuse` (the resident placement
+    marks its carry stale: the refused group folded nothing on the card)."""
 
-    __slots__ = ("_host", "_event", "_shape", "_out")
+    __slots__ = ("_host", "_event", "_shape", "_out", "_on_refuse")
 
-    def __init__(self, tensors: tuple, shape=None):
+    def __init__(self, tensors: tuple, shape=None, on_refuse=None):
         self._shape = shape          # (G, N) -> sparse; None -> dense
         self._out = None
+        self._on_refuse = on_refuse
         dev = tensors[0].device
         if dev.type == "cuda":
             self._host = tuple(
@@ -287,15 +292,21 @@ class PendingCounts:
         if self._out is None:
             if self._event is not None:
                 self._event.synchronize()
+                self._event = None
+            *counts, flags = self._host
+            if flags.numpy().any():
+                if self._on_refuse is not None:
+                    self._on_refuse()
+                raise_on_overflow(flags.numpy())
             if self._shape is None:
-                self._out = self._host[0].numpy().astype(np.int32)
+                self._out = counts[0].numpy().astype(np.int32)
             else:
-                idx, val = (t.numpy() for t in self._host)
+                idx, val = (t.numpy() for t in counts)
                 g, n = self._shape
                 dense = np.zeros(g * n, np.int32)
                 dense[idx] = val     # padding rewrites cell 0's own value
                 self._out = dense.reshape(g, n)
-            self._host = self._event = None
+            self._host = None
         return self._out
 
 
@@ -534,12 +545,10 @@ class ResidentPlacement:
         # as the reference ships it
         strategy = 1 if getattr(p, "strategy", "spread") == "binpack" else 0
 
-        # values the kernels index or sum with, checked on the host: the
-        # tick never waits on the card for a check
+        # values the kernels index with, checked on the host: the tick
+        # never waits on the card for a check. Sums that could wrap are
+        # the steps' to flag; the flags ride the counts' copy
         max_nt = int(p.n_tasks.max()) if p.n_tasks.size else 0
-        if np_b * max(max_nt, 0) >= _I32_LIMIT:
-            raise ValueError(f"N * max(n_tasks) = {np_b * max_nt} >= 2^31: "
-                             "int32 capacity sums could wrap")
         svc_idx = p.svc_idx_persistent
         if svc_idx.size and (svc_idx.min() < 0 or svc_idx.max() >= sp):
             raise ValueError(f"svc_idx_persistent outside [0, {sp})")
@@ -645,7 +654,7 @@ class ResidentPlacement:
          vol_topo) = (t[:G] for t in group_dev)
         pen_off, extra_on, vt_off = pen_off[:G], extra_on[:G], vt_off[:G]
         # the fill folds into the resident state in place
-        counts = schedule_core(
+        counts, flags = schedule_core(
             ready, node_val, node_plat, node_plugins,
             extra if use_extra else extra_on,
             constraints, plat_req, req_plugins,
@@ -662,10 +671,12 @@ class ResidentPlacement:
         sparse_bytes = k * (4 + (2 if compact else 4))
         if k < G * N and sparse_bytes < dense_bytes:
             self.pulls["sparse"] += 1
-            return PendingCounts(sparse_counts(counts, G, N, k, compact),
-                                 (G, N))
+            return PendingCounts(
+                (*sparse_counts(counts, G, N, k, compact), flags), (G, N),
+                on_refuse=self.invalidate)
         self.pulls["dense"] += 1
-        return PendingCounts((counts_window(counts, G, N, compact),))
+        return PendingCounts((counts_window(counts, G, N, compact), flags),
+                             on_refuse=self.invalidate)
 
     def after_apply(self, p: EncodedProblem, counts: np.ndarray):
         """Called after the scheduler applied this tick's placements and

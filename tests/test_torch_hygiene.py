@@ -1,6 +1,7 @@
 """The port stands alone: no module of `swarmkit_tpu_torch` (nor the chip
 smoke script) imports JAX or the JAX package, and its entry points run on
-the card or raise -- they never fall back to the CPU on their own."""
+the card or raise -- they never fall back to the CPU on their own. Its
+placement refuses only what the reference would sum wrongly in int32."""
 import ast
 import os
 import subprocess
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from swarmkit_tpu.ops import placement as jax_placement
 from swarmkit_tpu_torch import entry as torch_entry
 from swarmkit_tpu_torch.models import cluster_step as torch_cluster_step
 from swarmkit_tpu_torch.ops import placement as torch_placement
@@ -123,11 +125,56 @@ def test_wrappers_refuse_other_devices():
             a["extra_mask"], vol)
 
 
-def test_oversized_problem_is_refused():
-    """N * max(n_tasks) >= 2^31 could wrap the int32 sums: refused."""
+def _open_cluster(args):
+    """Every one of the 16 nodes eligible for both groups at capacity
+    min(UNLIMITED, n_tasks): no constraints, platforms, plugins, resource
+    needs, replica caps or ports."""
+    args = [a.clone() for a in args]
+    args[0].fill_(True)                  # ready
+    args[4].fill_(True)                  # extra_mask
+    args[5].fill_(-1)                    # constraints: all padded
+    args[6].fill_(-2)                    # plat_req: none
+    args[7].zero_()                      # req_plugins
+    args[13].zero_()                     # need_res
+    args[14].zero_()                     # max_replicas: unlimited
+    args[16].zero_()                     # has_ports
+    return args
+
+
+@pytest.mark.parametrize("strategy", [0, 1])
+@pytest.mark.parametrize("case", ["placed", "sum_below_2_31", "refused"])
+def test_oversized_problem_is_refused(case, strategy):
+    """The int32 contract: a group is refused only when its capacity sum,
+    the sum over its eligible nodes of min(cap, n_tasks), reaches 2^31.
+
+    `placed`: 16 nodes and 2 groups with n_tasks = 2^27 (N * max(n_tasks) =
+    2^31, which the port used to refuse). Group 0 needs no resource but is
+    constrained to fewer than 16 nodes, group 1's need caps it at a few
+    tasks a node, so both sums stay below 2^31: placed, equal to the JAX
+    package. `sum_below_2_31`: every node eligible and uncapped with
+    n_tasks = 2^27 - 1, a sum of 2^31 - 16: placed, equal to JAX.
+    `refused`: the same with n_tasks = 2^27, a sum of exactly 2^31. There
+    the reference's int32 sum of capacities wraps to -2^31, so its quota
+    min(n_tasks, sum) and every sum after it are wrong (it places more or
+    fewer tasks than n_tasks): the port raises instead."""
     args = list(torch_cluster_step.example_inputs(
         n_nodes=16, n_groups=2, tasks_per_group=4, device="cpu")[2:])
-    args[11] = torch.full((2,), (1 << 31) // 16, dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^31"):
-        torch_placement.schedule_groups(*args, device="cpu")
-    assert np.iinfo(np.int32).max >= int(args[11][0])
+    n_tasks = 1 << 27
+    if case != "placed":
+        args = _open_cluster(args)
+    if case == "sum_below_2_31":
+        n_tasks -= 1
+    args[11] = torch.full((2,), n_tasks, dtype=torch.int32)
+    want = jax_placement.schedule_groups(*(a.numpy() for a in args),
+                                         strategy=strategy)
+    if case == "refused":
+        assert int(np.asarray(want[0]).sum(axis=1)[0]) != n_tasks
+        with pytest.raises(ValueError, match="2\\^31"):
+            torch_placement.schedule_groups(*args, strategy=strategy,
+                                            device="cpu")
+        return
+    got = torch_placement.schedule_groups(*args, strategy=strategy,
+                                          device="cpu")
+    for g, w in zip(got, want):       # counts, totals, svc counts
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[0][0].sum()) == n_tasks
