@@ -4,7 +4,7 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the 13 kernels from csrc/, all at once, and
+  2. build    — nvcc builds the 17 kernels from csrc/, all at once, and
                 cc the native commit walk (native/_hostops.c); the run
                 fails unless the native module loaded;
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
@@ -61,11 +61,38 @@ result line) if any phase fails:
                 65,537 nodes (131,072 on the card) with a 16,384-task
                 service and the one-shot entry at 20,000 nodes with a
                 131,072-task service, each placing every task, equal to the
-                CPU oracle.
+                CPU oracle;
+ 12. global   — a new leader's startup reconcile of the global services
+                over the store: 50,000 READY nodes in 20 zones, 20 global
+                services pinned to one zone each, one RUNNING task per
+                eligible pair, then 1% of the nodes drained, 1% down and 1%
+                added (20 x 50,500 = 1.01 M cells, at DIFF_THRESHOLD or
+                above). store.view_and_watch(orch.setup), then
+                orch.on_start: check_tasks (restarts armed on the real
+                clock), then bulk_reconcile (host scan, two K14 diffs
+                through compute_diff, one store batch); each diff equal to
+                numpy and the plain version, the scan's eligibility equal
+                to a plain reference, every eligible pair then carrying a
+                runnable task and no drained or down node any; then one
+                start()/stop() of the event loop, whose startup pass plans
+                nothing; scan, diff and apply seconds apart;
+ 13. reconcile — the device-resident O(churn) diff at bench.py's
+                global-diff row (bench.py:463-578: 200 services x 50,000
+                nodes, 2,000 task slots, default_rng(0), converged start):
+                the cold packed upload (K10) and count (K16), 6 bursts of
+                16 rounds of 1% churn (K17) from the same carry, every
+                round's codes equal to the numpy full diff at its touched
+                pairs, the burst's carries equal to numpy and K16; round 16
+                again through global_diff_update (K14) and
+                global_diff_update_compact (cap 2U, K14 + K15) on the state
+                after round 15, equal to numpy; then K14-K17 against their
+                plain versions on the inputs of phases 12 and 13 (times by
+                CUDA events; torch.nonzero and torch.bincount as the
+                library times of K15 and K16).
 
-Each path (phases 4-5, phase 6, phase 8, phase 10 and phase 11) runs with
-every launch count set to 0 just before it, and fails unless each of its
-kernels launched.
+Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12 and 13) runs
+with every launch count set to 0 just before it, and fails unless each of
+its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
 line of its output is {"ok": true, "device": {...}}.
@@ -1455,6 +1482,521 @@ def phase_int32(seed):
             f"set-up {t1 - t0:.1f} s")
 
 
+
+# ------------------------------------------------- global-service reconcile
+GLOBAL_NODES = 50_000         # bench.py:482, the global-diff row's nodes
+GLOBAL_SERVICES = 20          # one zone each: 1/20 = 5% eligibility
+GLOBAL_CHURN = 0.01           # of the nodes: drained, down, and added
+
+
+def global_store(seed):
+    """The startup reconcile's cluster: GLOBAL_NODES READY nodes labelled
+    zone=z0..z19, GLOBAL_SERVICES global services each pinned to one zone,
+    one RUNNING task per (service, node of its zone), then churn: 1% of the
+    nodes drained, 1% down, 1% new READY nodes. Returns the store and the
+    plain reference of its eligibility: per node (sorted by id) its zone
+    row and whether it is READY+ACTIVE and whether it keeps tasks."""
+    from swarmkit_tpu_torch.api.objects import Node, Service, Task
+    from swarmkit_tpu_torch.api.specs import ServiceSpec
+    from swarmkit_tpu_torch.api.types import (NodeAvailability,
+                                              NodeStatusState, ServiceMode,
+                                              TaskState)
+    from swarmkit_tpu_torch.state.proposer import LocalProposer
+    from swarmkit_tpu_torch.store.memory import MemoryStore
+
+    S, N = GLOBAL_SERVICES, GLOBAL_NODES
+    k = int(N * GLOBAL_CHURN)
+    rng = np.random.default_rng(seed)
+    store = MemoryStore(proposer=LocalProposer())
+
+    def node(nid, zone):
+        n = Node(id=nid)
+        n.status.state = NodeStatusState.READY
+        n.spec.availability = NodeAvailability.ACTIVE
+        n.spec.annotations.labels = {"zone": f"z{zone}"}
+        return n
+
+    def converged(tx):
+        for i in range(N):
+            tx.create(node(f"node-{i:06d}", i % S))
+        for s in range(S):
+            svc = Service(id=f"global-{s:02d}",
+                          spec=ServiceSpec(mode=ServiceMode.GLOBAL))
+            svc.spec.annotations.name = f"global-{s:02d}"
+            svc.spec.task.placement.constraints = [
+                f"node.labels.zone == z{s}"]
+            tx.create(svc)
+        for i in range(N):
+            t = Task(id=f"task-{i:06d}", service_id=f"global-{i % S:02d}",
+                     node_id=f"node-{i:06d}")
+            t.desired_state = TaskState.RUNNING
+            t.status.state = TaskState.RUNNING
+            tx.create(t)
+
+    drained, down = np.split(rng.choice(N, 2 * k, replace=False), 2)
+
+    def churn(tx):
+        for i in drained:
+            n = tx.get_node(f"node-{i:06d}").copy()
+            n.spec.availability = NodeAvailability.DRAIN
+            tx.update(n)
+        for i in down:
+            n = tx.get_node(f"node-{i:06d}").copy()
+            n.status.state = NodeStatusState.DOWN
+            tx.update(n)
+        for i in range(N, N + k):
+            tx.create(node(f"node-{i:06d}", int(rng.integers(S))))
+
+    gc.disable()
+    try:
+        store.update(converged)
+        store.update(churn)
+    finally:
+        gc.enable()
+    nodes = sorted(store.view().find_nodes(), key=lambda n: n.id)
+    zone = np.array([int(n.spec.annotations.labels["zone"][1:])
+                     for n in nodes])
+    ready = np.array([n.status.state == NodeStatusState.READY
+                      and n.spec.availability == NodeAvailability.ACTIVE
+                      for n in nodes])
+    keeps = np.array([n.status.state != NodeStatusState.DOWN
+                      and n.spec.availability != NodeAvailability.DRAIN
+                      for n in nodes])
+    return store, [n.id for n in nodes], zone, ready, keeps
+
+
+def global_census(store, node_ids, S):
+    """Per (service, node): the number of tasks with desired <= RUNNING,
+    and of those the runnable ones."""
+    from swarmkit_tpu_torch.api.types import TaskState
+
+    col = {nid: i for i, nid in enumerate(node_ids)}
+    active = np.zeros((S, len(node_ids)), np.int32)
+    runnable = np.zeros_like(active)
+    for t in store.view().find_tasks():
+        if t.desired_state > TaskState.RUNNING or t.node_id not in col:
+            continue
+        s, n = int(t.service_id[-2:]), col[t.node_id]
+        active[s, n] += 1
+        runnable[s, n] += t.status.state <= TaskState.RUNNING
+    return active, runnable
+
+
+def phase_global(seed, rec):
+    """A new leader's startup reconcile of the global services over the
+    store, on the card: `view_and_watch(orch.setup)`, then `on_start`
+    (check_tasks, then bulk_reconcile: the host scan, two K14 diffs through
+    compute_diff at 20 x 50,500 = 1.01 M cells, the store batch). Every
+    diff equal to numpy and to the plain version; afterwards every
+    eligible (service, node) carries a runnable task and no node that
+    keeps no tasks carries one, against a plain reference of eligibility;
+    then one start()/stop() of the event loop, whose startup pass plans
+    nothing. Keeps the first diff's inputs in `rec`."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import reconcile as rc
+    from swarmkit_tpu_torch.orchestrator import global_ as gmod
+    from swarmkit_tpu_torch.orchestrator import taskinit
+    from swarmkit_tpu_torch.utils.clock import Clock
+
+    t0 = time.perf_counter()
+    store, node_ids, zone, ready, keeps = global_store(seed)
+    S, N = GLOBAL_SERVICES, len(node_ids)
+    rows = np.arange(S)[:, None] == zone[None, :]
+    want_elig, want_keeps = rows & ready[None, :], rows & keeps[None, :]
+    setup_s = time.perf_counter() - t0
+    log(f"[global] set-up {setup_s:.1f} s: {len(store.view().find_tasks())} "
+        f"tasks on {N} nodes")
+    if S * N < rc.DIFF_THRESHOLD:
+        fail(f"[global] {S} x {N} cells is below DIFF_THRESHOLD")
+
+    calls, spent = [], {"diff": 0.0, "apply": 0.0, "check": 0.0,
+                        "restarts": 0}
+    real_diff, real_check = rc.compute_diff, taskinit.check_tasks
+    real_batch = store.batch
+
+    def diff(eligible, task_nodes, device=None):
+        t = time.perf_counter()
+        out = real_diff(eligible, task_nodes, device=device)
+        spent["diff"] += time.perf_counter() - t
+        calls.append((eligible.copy(), task_nodes.copy(), out))
+        return out
+
+    def check(*a):
+        t = time.perf_counter()
+        try:
+            fixed = real_check(*a)
+            spent["restarts"] += fixed
+            return fixed
+        finally:
+            spent["check"] += time.perf_counter() - t
+
+    def batch(cb, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_batch(cb, *a, **kw)
+        finally:
+            spent["apply"] += time.perf_counter() - t
+
+    class Observed(gmod.GlobalOrchestrator):
+        """Says when its startup pass is over."""
+        def on_start(self, snapshot):
+            try:
+                super().on_start(snapshot)
+            finally:
+                self.started.set()
+
+    import threading
+
+    rc.compute_diff, taskinit.check_tasks, store.batch = diff, check, batch
+    orch = loop = None
+    try:
+        orch = gmod.GlobalOrchestrator(store)
+        t1 = time.perf_counter()
+        services, ch = store.view_and_watch(orch.setup, limit=None)
+        try:
+            orch.on_start(services)
+        finally:
+            store.queue.stop_watch(ch)
+        start_s = time.perf_counter() - t1
+        orch.stop()                       # cancels the restart timers
+        if not spent["restarts"]:
+            fail("[global] check_tasks restarted no task of the drained "
+                 "and down nodes")
+        wheel = Clock._wheel
+        while wheel is not None and wheel._busy:
+            time.sleep(0.01)              # a promote already under way
+        if len(calls) != 2:
+            fail(f"[global] bulk_reconcile made {len(calls)} diffs, not 2")
+        if not np.array_equal(calls[0][0], want_elig) \
+                or not np.array_equal(calls[1][0], want_keeps):
+            fail("[global] the scan's eligibility differs from the plain "
+                 "reference")
+        dev = resolve_device()
+        for eligible, task_nodes, (create, shutdown) in calls:
+            want = rc.global_diff_np(eligible, task_nodes)
+            plain = rc.global_diff_plain(torch.from_numpy(eligible).to(dev),
+                                         torch.from_numpy(task_nodes).to(dev))
+            for got, w, p in zip((create, shutdown), want, plain):
+                if not (np.array_equal(got, w)
+                        and np.array_equal(got, p.cpu().numpy())):
+                    fail("[global] a K14 diff differs from numpy or the "
+                         "plain version")
+        rec["global_diff"] = calls[0][:2]
+        active, runnable = global_census(store, node_ids, S)
+        missing = int((want_elig & (runnable == 0)).sum())
+        extra = int(((~want_keeps) & (active > 0)).sum())
+        if missing or extra:
+            fail(f"[global] after on_start: {missing} eligible pairs without "
+                 f"a runnable task, {extra} pairs on nodes that keep no tasks "
+                 "with one")
+        creates = int(calls[0][2][0].sum())
+        shutdowns = int(calls[1][2][1].sum())
+        version = store.version.index
+
+        loop = Observed(store)
+        loop.started = threading.Event()
+        t2 = time.perf_counter()
+        loop.start()
+        if not loop.started.wait(600):
+            fail("[global] the event loop's startup pass did not finish")
+        loop_s = time.perf_counter() - t2
+        if store.version.index != version or len(calls) != 4:
+            fail("[global] the second startup pass changed the store "
+                 f"(version {version} -> {store.version.index}, "
+                 f"{len(calls)} diffs)")
+        loop.stop()
+        if loop._thread.is_alive():
+            fail("[global] the event loop's thread did not stop")
+    finally:
+        rc.compute_diff, taskinit.check_tasks = real_diff, real_check
+        store.batch = real_batch
+        for o in (orch, loop):
+            if o is not None:
+                o.stop()
+        wheel = Clock._wheel
+        if wheel is not None:             # the process-wide timer service
+            wheel.stop()
+            if wheel._thread is not None:
+                wheel._thread.join(5)
+            Clock._wheel = None
+    bulk_s = start_s - spent["check"]
+    log(f"[global] {S} services x {N} nodes ({rc.DIFF_THRESHOLD} cells at "
+        f"least: {S * N}), {int(want_elig.sum())} eligible pairs; set-up "
+        f"{setup_s:.1f} s; on_start {start_s:.4f} s = check_tasks "
+        f"{spent['check']:.4f} ({spent['restarts']} restarts) + "
+        f"bulk_reconcile "
+        f"{bulk_s:.4f} (host clock)")
+    log(f"[global] startup pass 1: host scan "
+        f"{bulk_s - spent['diff'] - spent['apply']:.4f} s; both diffs "
+        f"(upload, K14, pull) {spent['diff']:.4f} s; apply {spent['apply']:.4f} "
+        f"s; {creates} creates, {shutdowns} shutdowns; every K14 diff equal "
+        f"to numpy and the plain version, every eligible pair runnable, no "
+        f"task left on a drained or down node")
+    log(f"[global] start()/stop(): the loop's startup pass {loop_s:.4f} s "
+        f"planned nothing (store at version {version}); thread joined")
+
+
+# ------------------------------------------------ the O(churn) resident diff
+RECONCILE_SHAPE = (200, 50_000, 2_000)  # bench.py:482, S, N, T
+RECONCILE_BURST = 16
+RECONCILE_REPS = 6
+
+
+def _reconcile_updates(rng, S, T, U, B, N):
+    """bench.py's mk_upd, B times: unique (service, slot) a round."""
+    upds = []
+    for _ in range(B):
+        flat = rng.choice(S * T, U, replace=False)
+        upds.append(((flat // T).astype(np.int32),
+                     (flat % T).astype(np.int32),
+                     rng.integers(-1, N, U).astype(np.int32)))
+    return [np.stack([u[i] for u in upds]) for i in range(3)]
+
+
+def phase_reconcile(seed, rec):
+    """The device-resident O(churn) diff at bench_global_diff's shape
+    (bench.py:463-578): the cold packed eligibility upload (K10) and the
+    count carry (K16), 6 bursts of 16 churn rounds (K17) from the same
+    converged carry, then round 16 again through global_diff_update (K14)
+    and global_diff_update_compact (K14 + K15) on the state after round
+    15. Every round's codes against the numpy full diff at its touched
+    pairs; the carries and decisions against numpy."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import reconcile as rc
+
+    dev = resolve_device()
+    S, N, T = RECONCILE_SHAPE
+    rng = np.random.default_rng(0)           # bench.py:480-489
+    eligible = rng.random((S, N)) < 0.04
+    task_nodes = np.full((S, T), -1, np.int32)
+    for si in range(S):
+        elig_nodes = np.flatnonzero(eligible[si])
+        k = min(T, elig_nodes.size)
+        task_nodes[si, :k] = elig_nodes[:k]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = torch.from_numpy(rc.pack_eligibility(eligible)).to(dev)
+    tn_dev = torch.from_numpy(task_nodes).to(dev)
+    elig_dev = rc.unpack_eligibility(packed, N)
+    cnt_dev = rc.task_count_flat(tn_dev, N)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    rec["task_count_flat"] = (tn_dev, N)
+    if not np.array_equal(elig_dev.cpu().numpy(), eligible):
+        fail("[reconcile] the unpacked eligibility differs from numpy's")
+    want_cnt = np.zeros(S * N, np.int32)
+    valid = task_nodes >= 0
+    np.add.at(want_cnt, (np.arange(S)[:, None] * N + task_nodes)[valid], 1)
+    if not np.array_equal(cnt_dev.cpu().numpy(), want_cnt):
+        fail("[reconcile] task_count_flat differs from numpy's count")
+
+    U, B = S * T // 100, RECONCILE_BURST
+    rows_b, cols_b, vals_b = _reconcile_updates(rng, S, T, U, B, N)
+    rec["global_diff_churn_burst"] = (elig_dev, tn_dev, cnt_dev, rows_b,
+                                      cols_b, vals_b)
+    best, codes = None, None
+    for _ in range(RECONCILE_REPS):      # each from the converged carry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tn_b, cnt_b, codes_dev = rc.global_diff_churn_burst(
+            elig_dev, tn_dev, cnt_dev, rows_b, cols_b, vals_b)
+        codes = codes_dev.cpu().numpy()
+        dt = time.perf_counter() - t0
+        best = dt if best is None or dt < best else best
+
+    tn_np = task_nodes.copy()
+    for b in range(B):                       # bench.py:553-575, every round
+        r, c, v = rows_b[b], cols_b[b], vals_b[b]
+        old = tn_np[r, c]
+        tn_np[r, c] = v
+        create, shutdown = rc.global_diff_np(eligible, tn_np)
+        svc = np.concatenate([r, r])
+        node = np.concatenate([np.maximum(old, 0), np.maximum(v, 0)])
+        ok = np.concatenate([old >= 0, v >= 0])
+        want = (create[svc, node].astype(np.uint8)
+                | (shutdown[svc, node].astype(np.uint8) << 1)) * ok \
+            | (ok.astype(np.uint8) << 2)
+        if not np.array_equal(codes[b], want):
+            fail(f"[reconcile] round {b}: the burst's codes differ from the "
+                 "numpy full diff at the touched pairs")
+        if b == B - 2:
+            tn_15 = tn_np.copy()
+    if not np.array_equal(tn_b.cpu().numpy(), tn_np):
+        fail("[reconcile] the burst's task table differs from numpy's")
+    if not torch.equal(cnt_b, rc.task_count_flat(tn_b, N)):
+        fail("[reconcile] the burst's count carry differs from K16 on its "
+             "task table")
+
+    t15_dev = torch.from_numpy(tn_15).to(dev)
+    upd = (rows_b[-1], cols_b[-1], vals_b[-1])
+    rec["global_diff_update"] = (elig_dev, t15_dev, *upd)
+    tn_u, create_u, shutdown_u = rc.global_diff_update(elig_dev, t15_dev,
+                                                       *upd)
+    if not torch.equal(tn_u, tn_b):
+        fail("[reconcile] global_diff_update's table differs from the "
+             "burst's")
+    if not (np.array_equal(create_u.cpu().numpy(), create)
+            and np.array_equal(shutdown_u.cpu().numpy(), shutdown)):
+        fail("[reconcile] global_diff_update's diff differs from numpy's")
+    cap = 2 * U
+    _, c_idx, s_idx, n_c, n_s = rc.global_diff_update_compact(
+        elig_dev, t15_dev, *upd, cap)
+    rec["diff_compact"] = (create_u, cap)
+    for name, idx, n, m in (("create", c_idx, n_c, create),
+                            ("shutdown", s_idx, n_s, shutdown)):
+        hits = np.stack(np.nonzero(m), 1).astype(np.int32)
+        want = np.full((cap, 2), -1, np.int32)
+        want[:min(cap, len(hits))] = hits[:cap]
+        if int(n) != len(hits) or not np.array_equal(idx.cpu().numpy(),
+                                                     want):
+            fail(f"[reconcile] the compact {name} list differs from numpy's "
+                 "nonzero cut to cap")
+    log(f"[reconcile] {S} x {N} cells, T {T}, U {U} (1%), burst {B}: cold "
+        f"packed upload + unpack + count {cold_s:.4f} s; best of "
+        f"{RECONCILE_REPS} bursts {best:.5f} s = {best / B:.6f} s a round "
+        f"(host clock, codes pulled); every round's codes equal to the "
+        f"numpy full diff at its {2 * U} touched pairs, carries equal; "
+        f"update form equal; compact lists (cap {cap}) equal to numpy with "
+        f"{int(n_c)} creates and {int(n_s)} shutdowns")
+
+
+def check_reconcile_kernels(rec):
+    """K14-K17 against their plain versions on the [global] and [reconcile]
+    phases' inputs; times by CUDA events; bounds from this run's shapes."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import reconcile as rc
+
+    out = {}
+    dev = resolve_device()
+
+    def record(name, err, kernel, plain, nbytes, nops, lib=None, shape="",
+               iters=50):
+        if err:
+            fail(f"{name} differs from its plain version ({shape}, err "
+                 f"{err})")
+        ms, plain_ms = _time_pair(kernel, plain, iters)
+        lib_ms = time_ms(lib, iters) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        log(f"[kernels] {name} ({shape}): equal to plain; {ms:.4f} ms vs "
+            f"plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} ms; bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         shape=shape)
+
+    def diff_err(a, b):
+        return max(int((x.int() - y.int()).abs().max()) if x.numel() else 0
+                   for x, y in zip(a, b))
+
+    # K14 at the [global] path's shape, then its update form at [reconcile]'s
+    elig, tn = (torch.from_numpy(a).to(dev) for a in rec["global_diff"])
+    S, N = elig.shape
+    T = tn.shape[1]
+    record("global_diff", diff_err(rc.global_diff(elig, tn),
+                                   rc.global_diff_plain(elig, tn)),
+           lambda: rc.global_diff(elig, tn),
+           lambda: rc.global_diff_plain(elig, tn),
+           3 * S * N + 4 * S * T, S * T + 3 * S * N,
+           shape=f"{S}x{N}, T={T}")
+    e, t, r, c, v = rec["global_diff_update"]
+    got = rc.global_diff_update(e, t, r, c, v)
+    want = rc.global_diff_update(e.cpu(), t.cpu(), r, c, v)
+    err = diff_err([g.cpu() for g in got], want)
+    if err:
+        fail("global_diff_update differs from its plain version")
+    rd = [torch.from_numpy(x).to(dev) for x in (r, c, v)]
+
+    def update_kernel():
+        t1 = t.clone()
+        return rc._diff_kernel(e, t1, rd)
+
+    def update_plain():
+        t1 = rc._set_slots_plain(t, *rd)
+        return rc.global_diff_plain(e, t1)
+    ms, plain_ms = _time_pair(update_kernel, update_plain)
+    S2, N2 = e.shape
+    T2, U = t.shape[1], r.shape[0]
+    b_ms, b_by = bound(3 * S2 * N2 + 8 * S2 * T2 + 12 * U,
+                       U + S2 * T2 + 3 * S2 * N2)
+    log(f"[kernels] global_diff update form ({S2}x{N2}, T={T2}, U={U}; the "
+        f"table copy and the device triples in): equal to plain; {ms:.4f} "
+        f"ms vs plain {plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+
+    # K15 on the update's create matrix, cap 2U
+    mask, cap = rec["diff_compact"]
+    S, N = mask.shape
+    gi, gn = rc.diff_compact(mask, cap)
+    wi, wn = rc.diff_compact_plain(mask, cap)
+    nz = torch.nonzero(mask)
+    k = min(cap, nz.shape[0])
+    if not torch.equal(nz[:k].int(), gi[:k]) or int(nz.shape[0]) != int(gn):
+        fail("torch.nonzero does not give diff_compact's lists")
+    record("diff_compact", diff_err([gi, gn[None]], [wi, wn[None]]),
+           lambda: rc.diff_compact(mask, cap),
+           lambda: rc.diff_compact_plain(mask, cap),
+           S * N + 8 * cap + 4, S * N,
+           lib=lambda: torch.nonzero(mask),
+           shape=f"{S}x{N}, cap {cap}, count {int(gn)}")
+
+    # K16 at the bench shape; the library is bincount on the masked index
+    tn, N = rec["task_count_flat"]
+    S, T = tn.shape
+    flat = (torch.arange(S, device=dev)[:, None] * N
+            + tn.clamp(0, N - 1))[tn >= 0]
+    got = rc.task_count_flat(tn, N)
+    if not torch.equal(torch.bincount(flat, minlength=S * N).int(), got):
+        fail("torch.bincount does not compute task_count_flat's function")
+    record("task_count_flat",
+           int((got - rc.task_count_flat_plain(tn, N)).abs().max()),
+           lambda: rc.task_count_flat(tn, N),
+           lambda: rc.task_count_flat_plain(tn, N),
+           4 * S * T + 4 * S * N, S * T,
+           lib=lambda: torch.bincount(flat, minlength=S * N),
+           shape=f"{S}x{T} into {S}x{N}")
+
+    # K17: the burst from the converged carry, triples on the card
+    e, tn, cnt, rows_b, cols_b, vals_b = rec["global_diff_churn_burst"]
+    S, N = e.shape
+    T = tn.shape[1]
+    B, U = rows_b.shape
+    trip = [torch.from_numpy(x).to(dev) for x in (rows_b, cols_b, vals_b)]
+    got = rc._churn_kernel(e, tn, cnt, *trip)
+    want = rc.global_diff_churn_burst_plain(e, tn, cnt, *trip)
+    # the function returns new carries: read and written once each
+    record("global_diff_churn_burst", diff_err(got, want),
+           lambda: rc._churn_kernel(e, tn, cnt, *trip),
+           lambda: rc.global_diff_churn_burst_plain(e, tn, cnt, *trip),
+           2 * 4 * S * (T + N) + 2 * B * U + 12 * B * U + 2 * B * U,
+           12 * B * U, shape=f"B={B}, U={U}, {S}x{N}, T={T}", iters=20)
+    full = time_ms(lambda: rc.global_diff_churn_burst(e, tn, cnt, rows_b,
+                                                      cols_b, vals_b), 20)
+    on_card = time_ms(lambda: rc.global_diff_churn_burst(e, tn, cnt, *trip),
+                      20)
+    log(f"[kernels] global_diff_churn_burst through its wrapper: "
+        f"{full:.4f} ms a burst from host triples (checked in numpy, one "
+        f"upload), {on_card:.4f} ms from triples on the card (checked "
+        f"there), against {out['global_diff_churn_burst']['ms']:.4f} ms "
+        f"for the kernel with its carries' copies")
+
+    # the device time alone, without each call's host cost
+    elig, tn14 = (torch.from_numpy(a).to(dev) for a in rec["global_diff"])
+    tn16, n16 = rec["task_count_flat"]
+    calls = {
+        "global_diff": lambda: rc.global_diff(elig, tn14),
+        "diff_compact": lambda: rc.diff_compact(mask, cap),
+        "task_count_flat": lambda: rc.task_count_flat(tn16, n16),
+        "global_diff_churn_burst": lambda: rc._churn_kernel(e, tn, cnt,
+                                                            *trip)}
+    for key, fn in calls.items():
+        out[key]["graph_ms"] = graph_ms(fn)
+        log(f"[kernels] {key}: {out[key]['graph_ms']:.5f} ms per call "
+            f"replayed from a CUDA graph, against {out[key]['ms']:.4f} ms "
+            f"per call issued from the host")
+    return out
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -1483,6 +2025,14 @@ SOURCES = {
                            "swarmkit_tpu/ops/raft_replay.py:118"),
     "replay_log_scan": ("swarmkit_tpu_torch/csrc/replay_log_scan.cu",
                         "swarmkit_tpu/ops/raft_replay.py:126"),
+    "global_diff": ("swarmkit_tpu_torch/csrc/global_diff.cu",
+                    "swarmkit_tpu/ops/reconcile.py:34"),
+    "diff_compact": ("swarmkit_tpu_torch/csrc/diff_compact.cu",
+                     "swarmkit_tpu/ops/reconcile.py:58"),
+    "task_count_flat": ("swarmkit_tpu_torch/csrc/task_count_flat.cu",
+                        "swarmkit_tpu/ops/reconcile.py:99"),
+    "global_diff_churn_burst": ("swarmkit_tpu_torch/csrc/churn_burst.cu",
+                                "swarmkit_tpu/ops/reconcile.py:136"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
@@ -1494,7 +2044,11 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
          "replay": ("unpack_bits", "replay_commit", "frontier_advance_burst",
                     "match_index_commit", "replay_log_scan"),
          "int32": ("static_mask", "flat_fill_step", "sparse_counts",
-                   "svc_matrix_build")}
+                   "svc_matrix_build"),
+         "global": ("global_diff",),
+         "reconcile": ("unpack_bits", "task_count_flat",
+                       "global_diff_churn_burst", "global_diff",
+                       "diff_compact")}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -1521,6 +2075,7 @@ def main() -> int:
         from swarmkit_tpu_torch.ops import bitpack as bp
         from swarmkit_tpu_torch.ops import placement as pl
         from swarmkit_tpu_torch.ops import raft_replay as rr
+        from swarmkit_tpu_torch.ops import reconcile as rc
         from swarmkit_tpu_torch.ops import resident as rs
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
@@ -1539,7 +2094,11 @@ def main() -> int:
                 "unpack_bits": bp.unpack_bits,
                 "frontier_advance_burst": rr.frontier_advance_burst,
                 "match_index_commit": rr.match_index_commit,
-                "replay_log_scan": rr.replay_log_scan}
+                "replay_log_scan": rr.replay_log_scan,
+                "global_diff": rc.global_diff,
+                "diff_compact": rc.diff_compact,
+                "task_count_flat": rc.task_count_flat,
+                "global_diff_churn_burst": rc.global_diff_churn_burst}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
@@ -1567,6 +2126,12 @@ def main() -> int:
                               lambda: phase_replay(seed, replay_rec))
     results.update(check_replay_kernels(replay_rec))
     by_path["int32"] = drive("int32", wrappers, lambda: phase_int32(seed))
+    reconcile_rec = {}
+    by_path["global"] = drive("global", wrappers,
+                              lambda: phase_global(seed, reconcile_rec))
+    by_path["reconcile"] = drive(
+        "reconcile", wrappers, lambda: phase_reconcile(seed, reconcile_rec))
+    results.update(check_reconcile_kernels(reconcile_rec))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -71,6 +71,19 @@ ENTRIES = {
     "replay_log_scan": {
         "skt_replay_log_scan": [_P] * 3 + [_I] * 3 + [_P],
     },
+    "global_diff": {
+        "skt_global_diff": [_P] * 7 + [_I] * 4 + [_P],
+    },
+    "diff_compact": {
+        "skt_diff_compact": [_P] * 4 + [_I] * 3 + [_P],
+        "skt_diff_compact_tile": [],
+    },
+    "task_count_flat": {
+        "skt_task_count_flat": [_P] * 2 + [_I] * 3 + [_P],
+    },
+    "churn_burst": {
+        "skt_churn_burst": [_P] * 9 + [_I] * 5 + [_P],
+    },
 }
 
 _lock = threading.Lock()
@@ -151,6 +164,21 @@ def lib(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _loaded[name] = cdll
         return cdll
+
+
+def route(what: str, *tensors) -> str:
+    """The route of a wrapper's call: "plain" for CPU tensors, "kernel"
+    for CUDA ones; tensors on two devices, or on any other device, raise
+    (no kernel, no fallback)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cpu":
+        return "plain"
+    if dev.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {dev}")
+    return "kernel"
 
 
 def check(rc: int, what: str) -> None:

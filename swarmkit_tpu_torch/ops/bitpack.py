@@ -43,16 +43,13 @@ def unpack_bits(packed, n_cols: int):
     """Device half: uint8[R, ceil(C/8)] -> bool[R, C] (out[r, c] = bit c % 8
     of packed[r, c // 8]). Raises ValueError when a row has fewer than
     ceil(n_cols / 8) words."""
-    dev = packed.device
-    if dev.type == "cpu":
+    if _kernels.route("unpack_bits", packed) == "plain":
         return unpack_bits_plain(packed, n_cols)
-    if dev.type != "cuda":
-        raise ValueError(f"no unpack_bits kernel for device {dev}")
     _check_packed(packed, n_cols)
     if not packed.is_contiguous():
         raise ValueError("packed: not contiguous")
     R, W = packed.shape
-    out = torch.empty((R, n_cols), dtype=torch.bool, device=dev)
+    out = torch.empty((R, n_cols), dtype=torch.bool, device=packed.device)
     if R * n_cols == 0:
         return out
     rc = _kernels.lib("unpack_bits").skt_unpack_bits(

@@ -85,20 +85,6 @@ class FillState(NamedTuple):
     port_used: torch.Tensor      # bool[N, PV]
 
 
-def _route(*tensors) -> str:
-    """'plain' for CPU tensors, 'kernel' for CUDA tensors; raises on mixed
-    or other devices."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"tensors on {dev} and {t.device}")
-    if dev.type == "cpu":
-        return "plain"
-    if dev.type == "cuda":
-        return "kernel"
-    raise ValueError(f"no placement kernel for device {dev}")
-
-
 def _expect(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
@@ -164,7 +150,7 @@ def static_mask(ready, node_val, node_plat, node_plugins, constraints,
     (csrc/static_mask.cu) for CUDA tensors."""
     args = (ready, node_val, node_plat, node_plugins, constraints, plat_req,
             req_plugins, extra_mask, vol_topo)
-    if _route(*args) == "plain":
+    if _kernels.route("placement", *args) == "plain":
         return static_mask_plain(*args)
     G, N = extra_mask.shape
     K, PL = node_val.shape[1], node_plugins.shape[1]
@@ -433,7 +419,7 @@ def flat_fill_step(t: FillTables, s: FillState, g: int, out,
     """Group g's step with no spread levels: writes out[g] and the
     overflow flag flags[g], and folds the counts into s. Plain version for
     CPU tensors, kernel K2 (csrc/flat_fill.cu) for CUDA tensors."""
-    if _route(*t, *s, out, flags) == "plain":
+    if _kernels.route("placement", *t, *s, out, flags) == "plain":
         return flat_fill_step_plain(t, s, g, out, flags)
     G, N, R, PV, _ = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
@@ -454,7 +440,7 @@ def tree_fill_step(t: FillTables, s: FillState, g: int, out,
     """Group g's step with spread levels (LMAX > 0): writes out[g] and the
     overflow flag flags[g], and folds the counts into s. Plain version for
     CPU tensors, kernel K3 (csrc/tree_fill.cu) for CUDA tensors."""
-    if _route(*t, *s, out, flags) == "plain":
+    if _kernels.route("placement", *t, *s, out, flags) == "plain":
         return tree_fill_step_plain(t, s, g, out, flags)
     G, N, R, PV, L = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
@@ -481,7 +467,7 @@ def binpack_fill_step(t: FillTables, s: FillState, g: int, out,
     """Group g's binpack step (spread levels ignored): writes out[g] and
     the overflow flag flags[g], and folds the counts into s. Plain version
     for CPU tensors, kernel K9 (csrc/binpack_fill.cu) for CUDA tensors."""
-    if _route(*t, *s, out, flags) == "plain":
+    if _kernels.route("placement", *t, *s, out, flags) == "plain":
         return binpack_fill_step_plain(t, s, g, out, flags)
     G, N, R, PV, _ = _check_fill(t, s, out, flags)
     if not 0 <= g < G:

@@ -30,15 +30,6 @@ from . import _kernels
 from .bitpack import unpack_bits
 
 
-def _route(t, what: str) -> str:
-    dev = t.device
-    if dev.type == "cpu":
-        return "plain"
-    if dev.type != "cuda":
-        raise ValueError(f"no {what} kernel for device {dev}")
-    return "kernel"
-
-
 def _quorum(quorum, dev):
     return torch.as_tensor(quorum, dtype=torch.int32, device=dev).reshape(1)
 
@@ -67,7 +58,7 @@ def replay_commit(acks, quorum):
     scalar tensor, committed bool[E]); commit_index is the number of
     committed entries (0 == nothing committed)."""
     dev = acks.device
-    if _route(acks, "replay") == "plain":
+    if _kernels.route("replay", acks) == "plain":
         return replay_commit_plain(
             acks, torch.as_tensor(quorum, dtype=torch.int32))
     M, E = _check_acks(acks)
@@ -118,7 +109,7 @@ def frontier_advance_burst(acks, frontiers_b, quorum):
     bool[M, E], commits int32[B]), the plain version for CPU acks, kernel
     K11 (csrc/frontier_advance.cu, one launch a burst) for CUDA acks."""
     dev = acks.device
-    route = _route(acks, "frontier advance")
+    route = _kernels.route("frontier advance", acks)
     fronts = torch.as_tensor(frontiers_b, dtype=torch.int32).to(dev)
     M, E = _check_acks(acks) if route == "kernel" else acks.shape
     if fronts.dim() != 2 or fronts.shape[1] != M:
@@ -183,7 +174,7 @@ def match_index_commit(match_index, quorum):
     if match_index.shape[0] == 0:
         raise ValueError("match_index: no managers")
     dev = match_index.device
-    if _route(match_index, "match-index commit") == "plain":
+    if _kernels.route("match-index commit", match_index) == "plain":
         return match_index_commit_plain(match_index, quorum)
     mi = match_index.contiguous()
     q = _quorum(quorum, dev)
@@ -223,7 +214,7 @@ def replay_log_scan(acks, quorum, chunk: int = 65536):
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     dev = acks.device
-    if _route(acks, "replay scan") == "plain":
+    if _kernels.route("replay scan", acks) == "plain":
         return replay_log_scan_plain(acks, quorum, chunk)
     M, E = _check_acks(acks)
     q = _quorum(quorum, dev)

@@ -61,7 +61,6 @@ from .placement import (
     FillState,
     _expect,
     _ptr,
-    _route,
     raise_on_overflow,
     schedule_core,
 )
@@ -95,7 +94,7 @@ def resident_delta_scatter(state, deltas) -> None:
     """Set the delta rows into the resident state in place: the plain
     version for CPU tensors, kernel K5 (csrc/resident_delta_scatter.cu)
     for CUDA tensors. Repeated indices must carry identical rows."""
-    if _route(*state, *deltas) == "plain":
+    if _kernels.route("resident", *state, *deltas) == "plain":
         return resident_delta_scatter_plain(state, deltas)
     (ready, node_val, node_plat, node_plugins, port_used, avail_res, total0,
      svc_mat) = state
@@ -160,7 +159,7 @@ def counts_window(counts, g: int, n: int, compact: bool):
     """The real [g, n] window of int32 counts[Gp, Np] as one contiguous
     tensor, int16 when compact: the plain version for CPU tensors, kernel K6
     (csrc/counts_window.cu) for CUDA tensors."""
-    if _route(counts) == "plain":
+    if _kernels.route("resident", counts) == "plain":
         return counts_window_plain(counts, g, n, compact)
     _check_counts(counts, g, n)
     out = torch.empty((g, n), dtype=_counts_dtype(compact),
@@ -195,7 +194,7 @@ def sparse_counts(counts, g: int, n: int, k: int, compact: bool):
     flat indices ascending and padded with index 0 (and cell 0's value):
     the plain version for CPU tensors, kernel K7 (csrc/sparse_counts.cu)
     for CUDA tensors."""
-    if _route(counts) == "plain":
+    if _kernels.route("resident", counts) == "plain":
         return sparse_counts_plain(counts, g, n, k, compact)
     _check_counts(counts, g, n)
     if g * n == 0 or k < 1:
@@ -236,7 +235,7 @@ def svc_matrix_build(idx, vals, rows: int, cols: int):
     indices, int32 values; none for the all-zero matrix), made on idx's
     device: the plain version for CPU tensors, kernel K8
     (csrc/svc_matrix_build.cu) for CUDA tensors."""
-    if _route(idx, vals) == "plain":
+    if _kernels.route("resident", idx, vals) == "plain":
         return svc_matrix_build_plain(idx, vals, rows, cols)
     nnz = idx.shape[0]
     _expect(idx, "idx", torch.int32, (nnz,))

@@ -17,6 +17,7 @@ from swarmkit_tpu_torch import entry as torch_entry
 from swarmkit_tpu_torch.models import cluster_step as torch_cluster_step
 from swarmkit_tpu_torch.ops import placement as torch_placement
 from swarmkit_tpu_torch.ops import raft_replay as torch_replay
+from swarmkit_tpu_torch.ops import reconcile as torch_reconcile
 from swarmkit_tpu_torch.scheduler import batch as torch_batch
 
 torch.set_num_threads(1)
@@ -78,7 +79,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+def test_entry_points_raise_without_cuda(no_cuda, monkeypatch):
     args = torch_cluster_step.example_inputs(n_nodes=16, n_groups=2,
                                              tasks_per_group=4,
                                              device="cpu")
@@ -96,6 +97,39 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from swarmkit_tpu_torch.scheduler.encode import encode
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_batch.device_schedule_encoded(encode(infos, groups))
+    # the global reconcile at DIFF_THRESHOLD cells: the diff's kernel
+    # branch, directly and through the orchestrator's bulk pass
+    eligible = np.zeros((1, torch_reconcile.DIFF_THRESHOLD), bool)
+    tn = np.full((1, 1), -1, np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_reconcile.compute_diff(eligible, tn)
+    from swarmkit_tpu_torch.api.objects import Node, Service
+    from swarmkit_tpu_torch.api.specs import ServiceSpec
+    from swarmkit_tpu_torch.api.types import NodeStatusState, ServiceMode
+    from swarmkit_tpu_torch.orchestrator.global_ import GlobalOrchestrator
+    from swarmkit_tpu_torch.store.memory import MemoryStore
+
+    # a few cells reach the kernel branch once the threshold is lowered
+    monkeypatch.setattr(torch_reconcile, "DIFF_THRESHOLD", 1)
+    store = MemoryStore()
+
+    def cluster(tx):
+        for i in range(2):
+            tx.create(Service(id=f"g{i}", spec=ServiceSpec(
+                mode=ServiceMode.GLOBAL)))
+        for i in range(3):
+            n = Node(id=f"n{i}")
+            n.status.state = NodeStatusState.READY
+            tx.create(n)
+
+    store.update(cluster)
+    orch = GlobalOrchestrator(store)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            orch.bulk_reconcile([s.id for s in store.view().find_services()])
+    finally:
+        orch.stop()
+    assert not store.view().find_tasks()
 
 
 def test_wrappers_refuse_other_devices():
@@ -104,6 +138,24 @@ def test_wrappers_refuse_other_devices():
     acks = torch.zeros((3, 8), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="meta"):
         torch_replay.replay_commit(acks, 2)
+    elig = torch.zeros((2, 4), dtype=torch.bool, device="meta")
+    tn = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    cnt = torch.zeros(8, dtype=torch.int32, device="meta")
+    one = np.zeros(1, np.int32)
+    for call in (
+            lambda: torch_reconcile.global_diff(elig, tn),
+            lambda: torch_reconcile.global_diff_update(elig, tn, one, one,
+                                                       one),
+            lambda: torch_reconcile.global_diff_update_compact(
+                elig, tn, one, one, one, 4),
+            lambda: torch_reconcile.diff_compact(elig, 4),
+            lambda: torch_reconcile.task_count_flat(tn, 4),
+            lambda: torch_reconcile.global_diff_churn(elig, tn, cnt, one,
+                                                      one, one),
+            lambda: torch_reconcile.global_diff_churn_burst(
+                elig, tn, cnt, one[None], one[None], one[None])):
+        with pytest.raises(ValueError, match="meta"):
+            call()
     args = torch_cluster_step.example_inputs(n_nodes=16, n_groups=2,
                                              tasks_per_group=4,
                                              device="cpu")
