@@ -4,7 +4,7 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the 17 kernels from csrc/, all at once, and
+  2. build    — nvcc builds the 18 kernels from csrc/, all at once, and
                 cc the native commit walk (native/_hostops.c); the run
                 fails unless the native module loaded;
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
@@ -88,9 +88,34 @@ result line) if any phase fails:
                 after round 15, equal to numpy; then K14-K17 against their
                 plain versions on the inputs of phases 12 and 13 (times by
                 CUDA events; torch.nonzero and torch.bincount as the
-                library times of K15 and K16).
+                library times of K15 and K16);
+ 14. alloc    — the allocator plane: a new leader's startup allocation for
+                a global service on an overlay network with a /16 subnet
+                (65,536 addresses; `docker network create --driver overlay
+                --subnet 10.0.0.0/16`) over 50,000 READY nodes. The global
+                orchestrator's startup pass creates 50,000 NEW tasks; the
+                allocator's event loop (view_and_watch(setup), on_start)
+                gives the network its pool, the service its VIP and the
+                tasks their addresses in 250 chunks of 200, one K19
+                grant each over the 65,533-address probe range; then round
+                2 on the live loop, one store transaction: 1% of the nodes
+                drained with their tasks shut down, 1% new nodes with a
+                NEW task each, which the first release retries in
+                batches. The same scenario runs again with the plain
+                version (device="cpu") and with the scalar IPAM and
+                PortAllocator (the per-task loop): every task PENDING or
+                terminal, no address held twice, every address, the
+                pool's cursor and its allocated set equal across the three
+                runs, and the global orchestrator's pass over the result
+                plans nothing; host seconds of the store build, the
+                orchestrator pass, the allocator's rebuild, the grants and
+                the store batches, and the card's idle share; then K19
+                against its plain version on three recorded startup chunks
+                and on a 2^20-address pool at 50% occupancy (cursor in the
+                middle, cursor past the range), with torch.argsort(stable)
+                as its library time.
 
-Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12 and 13) runs
+Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13 and 14) runs
 with every launch count set to 0 just before it, and fails unless each of
 its kernels launched.
 
@@ -1997,6 +2022,410 @@ def check_reconcile_kernels(rec):
     return out
 
 
+# ------------------------------------------------------ the allocator plane
+ALLOC_NODES = 50_000          # [global]'s node count
+ALLOC_SUBNET = "10.0.0.0/16"  # docker network create --subnet 10.0.0.0/16
+ALLOC_CHURN = 0.01            # of the nodes: drained, and added, in round 2
+ALLOC_RECORD = (0, 125, 249)  # the startup chunks whose K19 inputs are kept
+
+
+def alloc_master(seed):
+    """The store a new leader's allocator finds: ALLOC_NODES READY nodes,
+    one overlay network with `spec.ipam = {"subnet": ALLOC_SUBNET}`, one
+    global service whose task template attaches to it, and the NEW tasks
+    the global orchestrator's startup pass created for it. Returns the
+    store's snapshot, round 2's writes (made once, so every run gets the
+    same objects) and the set-up seconds."""
+    from swarmkit_tpu_torch.api.objects import Network, Node, Service
+    from swarmkit_tpu_torch.api.specs import (Annotations,
+                                              NetworkAttachmentConfig,
+                                              NetworkSpec, ServiceSpec)
+    from swarmkit_tpu_torch.api.types import (NodeAvailability,
+                                              NodeStatusState, ServiceMode)
+    from swarmkit_tpu_torch.orchestrator import global_ as gmod
+    from swarmkit_tpu_torch.orchestrator.task import new_task
+    from swarmkit_tpu_torch.state.proposer import LocalProposer
+    from swarmkit_tpu_torch.store import by
+    from swarmkit_tpu_torch.store.memory import MemoryStore
+
+    N = ALLOC_NODES
+    k = int(N * ALLOC_CHURN)
+    rng = np.random.default_rng(seed)
+    store = MemoryStore(proposer=LocalProposer())
+
+    def node(i):
+        n = Node(id=f"node-{i:06d}")
+        n.status.state = NodeStatusState.READY
+        n.spec.availability = NodeAvailability.ACTIVE
+        return n
+
+    def build(tx):
+        for i in range(N):
+            tx.create(node(i))
+        tx.create(Network(id="net-overlay", spec=NetworkSpec(
+            annotations=Annotations(name="overlay"),
+            ipam={"subnet": ALLOC_SUBNET})))
+        svc = Service(id="svc-agent", spec=ServiceSpec(
+            annotations=Annotations(name="agent"), mode=ServiceMode.GLOBAL))
+        svc.spec.task.networks = [NetworkAttachmentConfig(
+            target="net-overlay")]
+        tx.create(svc)
+
+    t0 = time.perf_counter()
+    gc.disable()
+    try:
+        store.update(build)
+        build_s = time.perf_counter() - t0
+        orch = gmod.GlobalOrchestrator(store)
+        try:
+            t1 = time.perf_counter()
+            services, ch = store.view_and_watch(orch.setup, limit=None)
+            try:
+                orch.on_start(services)
+            finally:
+                store.queue.stop_watch(ch)
+            orch_s = time.perf_counter() - t1
+        finally:
+            orch.stop()
+        view = store.view()
+        tasks = view.find_tasks()
+        if len(tasks) != N or any(t.networks for t in tasks):
+            fail(f"[alloc] the orchestrator created {len(tasks)} tasks, not "
+                 f"{N} NEW ones")
+        # round 2, as the global orchestrator's node handlers decide it:
+        # the drained nodes' tasks shut down (never assigned, so terminal
+        # at once, mark_shutdown), a NEW task on every new node
+        drained = [f"node-{i:06d}" for i in
+                   sorted(rng.choice(N, k, replace=False))]
+        gone = [t.id for nid in drained
+                for t in view.find_tasks(by.ByNodeID(nid))]
+        added = [node(i) for i in range(N, N + k)]
+        svc = view.get_service("svc-agent")
+        born = [new_task(None, svc, 0, node_id=n.id) for n in added]
+        t2 = time.perf_counter()
+        snap = store.save()
+        save_s = time.perf_counter() - t2
+    finally:
+        gc.enable()
+    return snap, (drained, gone, added, born), build_s, orch_s, save_s
+
+
+def alloc_run(snap, round2, mode, rec=None):
+    """One allocator over a store restored from `snap`: `mode` "card"
+    (Allocator(store)), "plain" (device="cpu") or "scalar" (the scalar
+    IPAM and PortAllocator swapped in: no allocate_many, the per-task
+    loop). Round 1 is the event loop's startup pass (view_and_watch(setup),
+    on_start); round 2 is one store transaction on the live loop: 1% of
+    the nodes drained with their tasks shut down, then 1% new nodes with
+    a NEW task each; the first release retries the NEW tasks in batches.
+    The loop is stopped in a finally. Returns every task's (state,
+    addresses), the pool's cursor and allocated set, and the timings."""
+    import threading
+
+    from swarmkit_tpu_torch.allocator import allocator as amod
+    from swarmkit_tpu_torch.allocator.ipam import IPAM
+    from swarmkit_tpu_torch.api.objects import EventCommit
+    from swarmkit_tpu_torch.api.types import NodeAvailability
+    from swarmkit_tpu_torch.ops import alloc as ga
+    from swarmkit_tpu_torch.orchestrator.task import mark_shutdown
+    from swarmkit_tpu_torch.state.proposer import LocalProposer
+    from swarmkit_tpu_torch.store.memory import MemoryStore
+
+    class Observed(amod.Allocator):
+        """Says when its startup pass is over, which commit it has seen
+        last, and when it went idle after it; keeps its errors."""
+
+        def on_start(self, snapshot):
+            try:
+                super().on_start(snapshot)
+            except Exception as e:
+                self.errors.append(e)
+                raise
+            finally:
+                self.started.set()
+
+        def handle(self, ev):
+            try:
+                super().handle(ev)
+            except Exception as e:
+                self.errors.append(e)
+                raise
+            if isinstance(ev, EventCommit):
+                self.seen = ev.version.index
+
+        def idle(self):
+            self.idle_at = self.seen
+            self.went_idle.set()
+
+    def wait_idle(what):
+        """Until the loop has handled every commit and found no event for
+        one poll interval."""
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            target = store.version.index
+            alloc.went_idle.clear()
+            if not alloc.went_idle.wait(60):
+                continue
+            if alloc.errors:
+                fail(f"[alloc] {mode}: {what}: {alloc.errors[0]!r}")
+            if alloc.idle_at >= target and store.version.index == target:
+                return
+        fail(f"[alloc] {mode}: the loop did not go idle after {what}")
+
+    drained, gone, added, born = round2
+    t0 = time.perf_counter()
+    store = MemoryStore(proposer=LocalProposer())
+    store.restore(snap)
+    restore_s = time.perf_counter() - t0
+    alloc = Observed(store, device="cpu" if mode == "plain" else None)
+    if mode == "scalar":
+        alloc.ipam, alloc.ports = IPAM(), amod.PortAllocator()
+    alloc.started, alloc.went_idle = threading.Event(), threading.Event()
+    alloc.errors, alloc.seen, alloc.idle_at = [], -1, -1
+    spent = {"tasks": 0.0, "grants": 0.0, "order": 0.0, "calls": 0,
+             "events": []}
+    real_tasks = alloc._allocate_tasks
+
+    def allocate_tasks(ids):
+        t = time.perf_counter()
+        try:
+            return real_tasks(ids)
+        finally:
+            spent["tasks"] += time.perf_counter() - t
+
+    alloc._allocate_tasks = allocate_tasks
+    if mode != "scalar":
+        real_many = alloc.ipam.allocate_many
+
+        def allocate_many(net_id, k):
+            i = spent["calls"]
+            spent["calls"] += 1
+            if rec is not None and i in ALLOC_RECORD:
+                pool = alloc.ipam._pools[net_id]
+                size = pool.taken.shape[0]
+                rec.append((pool.taken.copy(), pool._cursor, 2, size - 2))
+            t = time.perf_counter()
+            try:
+                return real_many(net_id, k)
+            finally:
+                spent["grants"] += time.perf_counter() - t
+
+        alloc.ipam.allocate_many = allocate_many
+    real_order = ga.grant_order
+
+    def grant_order(*a, **kw):
+        """The pools' grant order (batched.py calls it through the
+        module): its host seconds, and on the card CUDA events around
+        it (mask upload, K19, the n_free read, the positions down)."""
+        if mode == "card":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
+            ev[0].record()
+        t = time.perf_counter()
+        try:
+            return real_order(*a, **kw)
+        finally:
+            spent["order"] += time.perf_counter() - t
+            if mode == "card":
+                ev[1].record()
+                spent["events"].append(ev)
+
+    def round2_tx(tx):
+        for nid in drained:
+            n = tx.get_node(nid).copy()
+            n.spec.availability = NodeAvailability.DRAIN
+            tx.update(n)
+        for tid in gone:
+            t = tx.get_task(tid).copy()
+            mark_shutdown(t)
+            tx.update(t)
+        for n in added:
+            tx.create(n)
+        for t in born:
+            tx.create(t)
+
+    ga.grant_order = grant_order
+    try:
+        t1 = time.perf_counter()
+        alloc.start()
+        if not alloc.started.wait(600):
+            fail(f"[alloc] {mode}: the startup pass did not finish")
+        start_s = time.perf_counter() - t1
+        if alloc.errors:
+            fail(f"[alloc] {mode}: the startup pass failed: "
+                 f"{alloc.errors[0]!r}")
+        round1 = {"tasks": spent["tasks"], "grants": spent["grants"],
+                  "order": spent["order"], "calls": spent["calls"]}
+        wait_idle("round 1")
+        t2 = time.perf_counter()
+        store.update(round2_tx)
+        wait_idle("round 2")
+        round2_s = time.perf_counter() - t2
+    finally:
+        alloc.stop()
+        ga.grant_order = real_order
+    if alloc._thread.is_alive():
+        fail(f"[alloc] {mode}: the event loop's thread did not stop")
+    busy_ms = sum(a.elapsed_time(b) for a, b in spent["events"]) \
+        if mode == "card" else 0.0
+    tasks = {t.id: (int(t.status.state),
+                    tuple(a for att in t.networks or []
+                          for a in att["addresses"]))
+             for t in store.view().find_tasks()}
+    pool = alloc.ipam._pools["net-overlay"]
+    out = dict(tasks=tasks, cursor=pool._cursor,
+               allocated=frozenset(pool.allocated), restore_s=restore_s,
+               start_s=start_s, round1=round1, round2_s=round2_s,
+               round2_calls=spent["calls"] - round1["calls"],
+               busy_ms=busy_ms, store=store)
+    return out
+
+
+def phase_alloc(seed, rec):
+    """The allocator plane on the card: a new leader's startup allocation
+    for a global service on an overlay /16 over [global]'s 50,000 nodes,
+    then a round of 1% node churn on the live event loop (`alloc_run`),
+    against the same scenario with the plain version (device="cpu") and
+    with the scalar IPAM and PortAllocator (the per-task loop). Every task
+    PENDING or terminal, no address held twice, every task's addresses,
+    the pool's cursor and its allocated set equal across the three runs;
+    then the global orchestrator's pass over the result plans nothing.
+    Keeps K19's inputs of three startup chunks in `rec`."""
+    from swarmkit_tpu_torch.api.types import TaskState
+    from swarmkit_tpu_torch.orchestrator import global_ as gmod
+
+    t_phase = time.perf_counter()
+    snap, round2, build_s, orch_s, save_s = alloc_master(seed)
+    N, k = ALLOC_NODES, len(round2[0])
+    log(f"[alloc] set-up: store build {build_s:.4f} s ({N} nodes, one /16 "
+        f"overlay, one global service); orchestrator startup pass "
+        f"{orch_s:.4f} s ({N} NEW tasks through the numpy diff); snapshot "
+        f"{save_s:.4f} s (host clock)")
+    runs = {}
+    for mode in ("card", "plain", "scalar"):
+        gc.collect()
+        gc.disable()          # 100,000 live objects: no collector passes
+        try:
+            runs[mode] = alloc_run(snap, round2, mode,
+                                   rec if mode == "card" else None)
+        finally:
+            gc.enable()
+        if mode != "card":
+            del runs[mode]["store"]
+    card = runs["card"]
+    store = card.pop("store")
+    live = [a for s, addrs in card["tasks"].values()
+            if s <= int(TaskState.RUNNING) for a in addrs]
+    bad = [tid for tid, (s, addrs) in card["tasks"].items()
+           if not (s == int(TaskState.PENDING) and len(addrs) == 1
+                   or s > int(TaskState.RUNNING) and not addrs)]
+    if bad or len(card["tasks"]) != N + k:
+        fail(f"[alloc] {len(bad)} tasks neither PENDING with one address "
+             f"nor terminal without one (of {len(card['tasks'])}): "
+             f"{bad[:3]}")
+    if len(set(live)) != len(live):
+        fail("[alloc] an address is held by two live tasks")
+    if card["round1"]["calls"] != N // 200 or card["round2_calls"] < 1:
+        fail(f"[alloc] {card['round1']['calls']} startup grants and "
+             f"{card['round2_calls']} in round 2, not {N // 200} and some")
+    for mode in ("plain", "scalar"):
+        r = runs[mode]
+        for key in ("tasks", "cursor", "allocated"):
+            if r[key] != card[key]:
+                diff = "" if key != "tasks" else [
+                    t for t in card["tasks"]
+                    if r["tasks"].get(t) != card["tasks"][t]][:3]
+                fail(f"[alloc] the card run's {key} differs from the "
+                     f"{mode} run's {diff}")
+    version = store.version.index
+    orch = gmod.GlobalOrchestrator(store)
+    try:
+        t0 = time.perf_counter()
+        orch.bulk_reconcile(["svc-agent"])
+        check_s = time.perf_counter() - t0
+    finally:
+        orch.stop()
+    if store.version.index != version:
+        fail("[alloc] the global orchestrator's pass after round 2 changed "
+             "the store: round 2 was not its decision")
+    for mode, r in runs.items():
+        r1 = r["round1"]
+        log(f"[alloc] {mode}: restore {r['restore_s']:.4f} s; startup pass "
+            f"{r['start_s']:.4f} s = rebuild (reserve, network, VIP, node "
+            f"attachments) {r['start_s'] - r1['tasks']:.4f} + tasks "
+            f"{r1['tasks']:.4f} (grants {r1['grants']:.4f} in "
+            f"{r1['calls']} calls, of which grant_order {r1['order']:.4f}; "
+            f"store batches "
+            f"{r1['tasks'] - r1['grants']:.4f}); round 2 "
+            f"{r['round2_s']:.4f} s ({r['round2_calls']} grant calls) "
+            f"(host clock)")
+    wall_ms = 1e3 * (card["start_s"] + card["round2_s"])
+    log(f"[alloc] {N} tasks, then {k} drained and {k} added: every task "
+        f"PENDING or terminal, no address held twice, cursor "
+        f"{card['cursor']}, {len(card['allocated'])} addresses held; every "
+        f"address, the cursor and the allocated set equal to the plain and "
+        f"the scalar runs; the orchestrator's pass after round 2 "
+        f"({check_s:.4f} s) plans nothing")
+    log(f"[alloc] the card: grant_order (mask upload, K19, n_free read, "
+        f"positions down) {card['busy_ms']:.3f} ms between CUDA events of "
+        f"the {wall_ms:.1f} ms of round 1 and round 2: idle at least "
+        f"{100 * (1 - card['busy_ms'] / wall_ms):.3f}% (host-bound); the "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_alloc_kernels(rec):
+    """K19 against its plain version on the [alloc] phase's recorded
+    inputs (its first, middle and last startup chunk), on a 2^20-slot pool
+    (a /12) at 50% occupancy with the cursor in the middle and past hi;
+    times by CUDA events and from a CUDA graph (the launch without its
+    read), bound from this run's data, the library time of
+    torch.argsort(stable=True) on a masked key built outside the
+    timing."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import alloc as ga
+
+    dev = resolve_device()
+    rng = np.random.default_rng(7)
+    big = rng.random(1 << 20) < 0.5
+    size = big.shape[0]
+    cases = [(f"[alloc] chunk {c}", *r) for c, r in zip(ALLOC_RECORD, rec)]
+    cases += [("/12 at 50%, cursor mid", big, size // 2, 2, size - 2),
+              ("/12 at 50%, cursor past hi", big, size + 5, 2, size - 2)]
+    out = {}
+    for name, taken, cursor, lo, hi in cases:
+        t = torch.from_numpy(taken).to(dev)
+        got = ga.grant_order_tensor(t, cursor, lo, hi)
+        want = ga.grant_order_plain(t, cursor, lo, hi)
+        if got.shape != want.shape:
+            fail(f"grant_order on {name}: {got.numel()} positions, plain "
+                 f"{want.numel()}")
+        err = int((got - want).abs().max()) if got.numel() else 0
+        if err:
+            fail(f"grant_order differs from its plain version on {name} "
+                 f"(err {err})")
+        ms, plain_ms = _time_pair(lambda: ga.grant_order_tensor(
+            t, cursor, lo, hi), lambda: ga.grant_order_plain(
+            t, cursor, lo, hi), iters=50)
+        g_ms = graph_ms(lambda: ga.grant_order_launch(t, cursor, lo, hi))
+        span = hi - lo + 1
+        start = cursor if lo <= cursor <= hi else lo
+        pos = torch.arange(lo, hi + 1, dtype=torch.int32, device=dev)
+        key = torch.where(~t[lo:hi + 1],
+                          torch.remainder(pos - start, span).int(), span)
+        lib_ms = time_ms(lambda: torch.argsort(key, stable=True), 50)
+        n_free = got.numel()
+        b_ms, b_by = bound(span + 4 * n_free + 4, span)
+        log(f"[kernels] grant_order on {name} (span {span}, n_free "
+            f"{n_free}): equal to plain; {ms:.4f} ms a call with its read "
+            f"vs plain {plain_ms:.4f} ms; graph {g_ms:.5f} ms; library "
+            f"(torch.argsort stable) {lib_ms:.4f} ms; bound {b_ms:.6f} ms "
+            f"({b_by})")
+        out.setdefault("grant_order", dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, graph_ms=g_ms,
+            shape=f"span {span}, n_free {n_free}"))
+    return out
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -2033,6 +2462,8 @@ SOURCES = {
                         "swarmkit_tpu/ops/reconcile.py:99"),
     "global_diff_churn_burst": ("swarmkit_tpu_torch/csrc/churn_burst.cu",
                                 "swarmkit_tpu/ops/reconcile.py:136"),
+    "grant_order": ("swarmkit_tpu_torch/csrc/grant_order.cu",
+                    "swarmkit_tpu/ops/alloc.py:45"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
@@ -2048,7 +2479,8 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
          "global": ("global_diff",),
          "reconcile": ("unpack_bits", "task_count_flat",
                        "global_diff_churn_burst", "global_diff",
-                       "diff_compact")}
+                       "diff_compact"),
+         "alloc": ("grant_order",)}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -2072,6 +2504,7 @@ def main() -> int:
     t_start = time.perf_counter()
     kind, count = phase_device()
     try:
+        from swarmkit_tpu_torch.ops import alloc as ga
         from swarmkit_tpu_torch.ops import bitpack as bp
         from swarmkit_tpu_torch.ops import placement as pl
         from swarmkit_tpu_torch.ops import raft_replay as rr
@@ -2098,7 +2531,8 @@ def main() -> int:
                 "global_diff": rc.global_diff,
                 "diff_compact": rc.diff_compact,
                 "task_count_flat": rc.task_count_flat,
-                "global_diff_churn_burst": rc.global_diff_churn_burst}
+                "global_diff_churn_burst": rc.global_diff_churn_burst,
+                "grant_order": ga.grant_order_launch}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
@@ -2132,6 +2566,13 @@ def main() -> int:
     by_path["reconcile"] = drive(
         "reconcile", wrappers, lambda: phase_reconcile(seed, reconcile_rec))
     results.update(check_reconcile_kernels(reconcile_rec))
+    alloc_rec = []
+    by_path["alloc"] = drive("alloc", wrappers,
+                             lambda: phase_alloc(seed, alloc_rec))
+    if by_path["alloc"]["grant_order"] < ALLOC_NODES // 200:
+        fail(f"[alloc] K19 launched {by_path['alloc']['grant_order']} times, "
+             f"fewer than the {ALLOC_NODES // 200} startup chunks")
+    results.update(check_alloc_kernels(alloc_rec))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

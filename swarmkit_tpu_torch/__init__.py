@@ -6,11 +6,14 @@ binpack), its steady tick on device-resident node state (`ops/resident.py`,
 flagship cluster step, the raft replay burst (`ops/raft_replay.py`) and the
 global orchestrator's reconcile over its own store (`store/`,
 `orchestrator/global_.py` on `ops/reconcile.py`, with the device-resident
-O(churn) diff) on one NVIDIA H100. Host code (the object model, the store,
-the orchestrator, the encoder, the CPU oracles) is numpy/Python, as in the
-JAX package, with the commit walk and the deep copy in C (`native/`); the
-device work is seventeen CUDA C++ kernels for sm_90a under `csrc/` (K1-K17),
-each with its plain PyTorch version beside its wrapper in `ops/`.
+O(churn) diff) and the allocator plane that moves new tasks to PENDING
+(`allocator/`: IPAM, published ports, whole NEW batches through
+`ops/alloc.py` grants, the deallocator) on one NVIDIA H100. Host code (the
+object model, the store, the orchestrator, the allocator, the encoder, the
+CPU oracles) is numpy/Python, as in the JAX package, with the commit walk
+and the deep copy in C (`native/`); the device work is eighteen CUDA C++
+kernels for sm_90a under `csrc/` (K1-K17 and K19), each with its plain
+PyTorch version beside its wrapper in `ops/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no device given and no CUDA device present they raise. A kernel wrapper
@@ -18,5 +21,6 @@ runs the plain version only for tensors that lie on the CPU.
 
 The port imports neither JAX nor the JAX package; it keeps its own copy of
 what it needs (`api/`, `scheduler/`, `store/`, `state/`, `orchestrator/`,
-`native/`, `utils/`, the exceptions of `raft/`, `analysis/lockgraph.py`).
+`allocator/`, `native/`, `utils/`, the exceptions of `raft/`,
+`analysis/lockgraph.py`).
 """

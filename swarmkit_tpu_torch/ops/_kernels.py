@@ -84,6 +84,10 @@ ENTRIES = {
     "churn_burst": {
         "skt_churn_burst": [_P] * 9 + [_I] * 5 + [_P],
     },
+    "grant_order": {
+        "skt_grant_order": [_P] * 4 + [_I] * 3 + [_P],
+        "skt_grant_order_tile": [],
+    },
 }
 
 _lock = threading.Lock()

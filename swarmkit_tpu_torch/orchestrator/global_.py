@@ -177,10 +177,13 @@ class GlobalOrchestrator(EventLoopComponent):
                         # re-validate inside the tx (state may have moved)
                         if node is None or not _node_eligible(node, service):
                             return
+                        # the node's tasks, not the service's: the same
+                        # set, without walking every task of the service
+                        # on each create
                         exists = any(
                             t.desired_state <= TaskState.RUNNING
-                            and task_runnable(t) and t.node_id == nid
-                            for t in tx.find_tasks(by.ByServiceID(sid)))
+                            and task_runnable(t) and t.service_id == sid
+                            for t in tx.find_tasks(by.ByNodeID(nid)))
                         if not exists:
                             tx.create(new_task(None, service, 0, node_id=nid))
                     else:
@@ -188,8 +191,8 @@ class GlobalOrchestrator(EventLoopComponent):
                         if node is not None and \
                                 _node_keeps_tasks(node, service):
                             return  # node recovered between scan and apply
-                        for t in tx.find_tasks(by.ByServiceID(sid)):
-                            if t.node_id != nid or \
+                        for t in tx.find_tasks(by.ByNodeID(nid)):
+                            if t.service_id != sid or \
                                     t.desired_state > TaskState.RUNNING:
                                 continue
                             cur = tx.get_task(t.id)

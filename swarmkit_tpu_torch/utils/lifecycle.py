@@ -6,8 +6,9 @@ module-global test and builds nothing. `armed()` installs a recorder for
 the length of a `with` block.
 
 The port's copy of the part of the JAX package's `utils/lifecycle.py`
-that the orchestrator's record sites call: the recorder keeps timelines
-only (no capacity bound, no histograms, no environment arming).
+that the orchestrator's and the allocator's record sites call: the
+recorder keeps timelines only (no capacity bound, no histograms, no
+environment arming).
 """
 from __future__ import annotations
 
@@ -46,17 +47,29 @@ class LifecycleRecorder:
         self.records = 0          # timeline entries appended
         self.rejected = 0         # non-advancing records dropped
 
+    def _append(self, task_id: str, stage: str, t: float) -> None:
+        tl = self._timelines.setdefault(task_id, [])
+        if tl:
+            last_rank = STAGE_RANK.get(tl[-1][0], -1)
+            if STAGE_RANK.get(stage, last_rank + 1) <= last_rank:
+                self.rejected += 1
+                return
+        tl.append((stage, t))
+        self.records += 1
+
     def record(self, task_id: str, stage, t: float | None = None) -> None:
         stage = _stage_name(stage)
         with self._lock:
-            tl = self._timelines.setdefault(task_id, [])
-            if tl:
-                last_rank = STAGE_RANK.get(tl[-1][0], -1)
-                if STAGE_RANK.get(stage, last_rank + 1) <= last_rank:
-                    self.rejected += 1
-                    return
-            tl.append((stage, time.time() if t is None else t))
-            self.records += 1
+            self._append(task_id, stage, time.time() if t is None else t)
+
+    def record_batch(self, stage, task_ids, t: float | None = None) -> None:
+        """One stage for many tasks: one lock hold, one timestamp for the
+        whole batch."""
+        stage = _stage_name(stage)
+        with self._lock:
+            now = time.time() if t is None else t
+            for task_id in task_ids:
+                self._append(task_id, stage, now)
 
     def timeline(self, task_id: str) -> list[tuple[str, float]]:
         with self._lock:
@@ -67,6 +80,10 @@ class LifecycleRecorder:
             return {tid: list(tl) for tid, tl in self._timelines.items()}
 
 
+def enabled() -> bool:
+    return _REC is not None
+
+
 def record(task_id: str, stage, t: float | None = None) -> None:
     """Record one task's stage crossing. Disarmed: one test, nothing
     else."""
@@ -74,6 +91,16 @@ def record(task_id: str, stage, t: float | None = None) -> None:
     if r is None:
         return
     r.record(task_id, stage, t=t)
+
+
+def record_batch(stage, task_ids, t: float | None = None) -> None:
+    """One stage, many tasks, one call. Callers that must first assemble
+    `task_ids` guard the assembly with `enabled()`, so the disarmed path
+    builds nothing."""
+    r = _REC
+    if r is None:
+        return
+    r.record_batch(stage, task_ids, t=t)
 
 
 @contextmanager
