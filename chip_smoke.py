@@ -4,7 +4,7 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the 18 kernels from csrc/, all at once, and
+  2. build    — nvcc builds the 19 kernels from csrc/, all at once, and
                 cc the native commit walk (native/_hostops.c); the run
                 fails unless the native module loaded;
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
@@ -114,10 +114,35 @@ result line) if any phase fails:
                 and on a 2^20-address pool at 50% occupancy (cursor in the
                 middle, cursor past the range), with torch.argsort(stable)
                 as its library time.
+ 15. replicated — the replicated services' reconcile path at bench.py's
+                orchestrator-storm row (bench.py:2288: 100,000 services of
+                2 replicas, a storm of 300 x 5), with 1,000 of the
+                services at 10 replicas (slots 1-10: a census of 100,000 x
+                11 = 1.1 M cells), 208,000 RUNNING tasks on 10,000 nodes;
+                the drift a new leader inherits: 100 services scaled up by
+                2, 100 down by 1, 1% of the tasks FAILED. A
+                ReplicatedOrchestrator's start(): on_start runs check_tasks
+                and one batched reconcile whose census runs on K18, its
+                decisions equal to decide_many with device="cpu" and to
+                the scalar decide_service (every decided service and 1,000
+                sampled steady ones); a store-side agent pump driven by the
+                watch queue converges the store (every service its
+                replicas in distinct runnable slots, no slot with two tasks
+                desired RUNNING); 100 nodes DOWN in one transaction reach
+                restart_many, whose grants equal sequential should_restart
+                calls; 300 services x 5 pushed to v2 in one batch, 25%
+                poisoned with failure_action=rollback, converge on one
+                planner thread (rolled back to v1, or completed on v2)
+                within 120 s; a second leader's on_start on the converged
+                store (K18 again) plans nothing; the columnar mirror equals
+                a rebuild. Host seconds of each part, the census's upload,
+                K18 and download apart, and the card's busy share of
+                on_start; then K18 against its plain version on both
+                recorded censuses and on a 2^20 x 16 census.
 
-Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13 and 14) runs
-with every launch count set to 0 just before it, and fails unless each of
-its kernels launched.
+Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14 and 15)
+runs with every launch count set to 0 just before it, and fails unless
+each of its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
 line of its output is {"ok": true, "device": {...}}.
@@ -2426,6 +2451,663 @@ def check_alloc_kernels(rec):
     return out
 
 
+# ------------------------------------------------ the replicated services
+REPL_SERVICES = 100_000       # bench.py:2288 bench_orchestrator_storm
+REPL_REPLICAS = 2
+REPL_WIDE = 1_000             # of them with REPL_WIDE_REPLICAS: M = 11
+REPL_WIDE_REPLICAS = 10
+REPL_NODES = 10_000           # the grid's nodes (bench.py:37-110)
+REPL_SCALED = 100             # services scaled up by 2, and down by 1
+REPL_FAILED = 0.01            # of the tasks: FAILED with desired RUNNING
+REPL_DOWN = 100               # nodes set DOWN in one transaction
+REPL_SAMPLE = 1_000           # steady services held against decide_service
+STORM_SERVICES = 300          # bench.py:2290 storm_services x storm_replicas
+STORM_REPLICAS = 5
+STORM_POISON = 0.25
+STORM_BUDGET_S = 120.0
+REPL_BUDGET_S = 300.0         # the pump's convergence, each time
+
+
+def repl_service(sid, replicas, policy=None):
+    """bench.py's `mk_service`: image v1, restart delay 0.05 s, rolling
+    updates 2 at a time, stop-first, a 0.3 s monitor, rollback on the
+    first failure."""
+    from swarmkit_tpu_torch.api.objects import Service, Version
+    from swarmkit_tpu_torch.api.specs import (Annotations, ContainerSpec,
+                                              RestartPolicy, ServiceSpec,
+                                              TaskSpec, UpdateConfig)
+    from swarmkit_tpu_torch.api.types import (UpdateFailureAction,
+                                              UpdateOrder)
+
+    svc = Service(id=sid)
+    svc.spec = ServiceSpec(
+        annotations=Annotations(name=sid), replicas=replicas,
+        task=TaskSpec(runtime=ContainerSpec(image="v1"),
+                      restart=policy or RestartPolicy(delay=0.05)),
+        update=UpdateConfig(parallelism=2, delay=0.0, monitor=0.3,
+                            order=UpdateOrder.STOP_FIRST,
+                            failure_action=UpdateFailureAction.ROLLBACK,
+                            max_failure_ratio=0.0))
+    svc.spec_version = Version(1)
+    return svc
+
+
+def replicated_store(seed):
+    """The converged cluster a new leader inherits, with its drift:
+    REPL_SERVICES replicated services of REPL_REPLICAS replicas, REPL_WIDE
+    of them of REPL_WIDE_REPLICAS, one RUNNING task a slot spread over
+    REPL_NODES READY nodes (every seventh service restarts at most 5 times
+    in 300 s, the rest without a limit); then REPL_SCALED services scaled
+    up by 2 and as many down by 1, and REPL_FAILED of the tasks FAILED
+    with desired RUNNING. Returns the store and the service ids."""
+    from swarmkit_tpu_torch.api.objects import Node, Task, Version
+    from swarmkit_tpu_torch.api.specs import RestartPolicy
+    from swarmkit_tpu_torch.api.types import (NodeAvailability,
+                                              NodeStatusState, TaskState)
+    from swarmkit_tpu_torch.state.proposer import LocalProposer
+    from swarmkit_tpu_torch.store.memory import MemoryStore
+
+    rng = np.random.default_rng(seed)
+    S, N = REPL_SERVICES, REPL_NODES
+    replicas = np.full(S, REPL_REPLICAS)
+    replicas[rng.choice(S, REPL_WIDE, replace=False)] = REPL_WIDE_REPLICAS
+    ids = [f"rsvc-{s:06d}" for s in range(S)]
+    store = MemoryStore(proposer=LocalProposer())
+    limited = RestartPolicy(delay=0.05, max_attempts=5, window=300.0)
+
+    def converged(tx):
+        for i in range(N):
+            n = Node(id=f"rnode-{i:05d}")
+            n.status.state = NodeStatusState.READY
+            n.spec.availability = NodeAvailability.ACTIVE
+            tx.create(n)
+        k = 0
+        for s, sid in enumerate(ids):
+            svc = repl_service(sid, int(replicas[s]),
+                               limited if s % 7 == 0 else None)
+            tx.create(svc)
+            for slot in range(1, int(replicas[s]) + 1):
+                t = Task(id=f"rtask-{s:06d}-{slot:02d}", service_id=sid,
+                         slot=slot, node_id=f"rnode-{k % N:05d}")
+                t.spec = svc.spec.task
+                t.spec_version = Version(1)
+                t.desired_state = TaskState.RUNNING
+                t.status.state = TaskState.RUNNING
+                tx.create(t)
+                k += 1
+
+    up, down = np.split(rng.choice(S, 2 * REPL_SCALED, replace=False), 2)
+    n_tasks = int(replicas.sum())
+    failed = set(rng.choice(n_tasks, int(n_tasks * REPL_FAILED),
+                            replace=False).tolist())
+
+    def drift(tx):
+        for s, step in [(s, 2) for s in up] + [(s, -1) for s in down]:
+            cur = tx.get_service(ids[s]).copy()
+            cur.spec.replicas += step
+            tx.update(cur)
+        k = 0
+        for s, sid in enumerate(ids):
+            for slot in range(1, int(replicas[s]) + 1):
+                if k in failed:
+                    c = tx.get_task(f"rtask-{s:06d}-{slot:02d}").copy()
+                    c.status.state = TaskState.FAILED
+                    tx.update(c)
+                k += 1
+
+    gc.disable()
+    try:
+        store.update(converged)
+        store.update(drift)
+    finally:
+        gc.enable()
+    return store, ids
+
+
+class AgentPump:
+    """Store-side fake agents, driven by the store's watch queue: a task
+    desired RUNNING that is not running yet starts (or FAILS when its
+    image is the poisoned one), a task told to shut down is observed
+    stopped. Each drained burst of task events is one store transaction.
+    Subscribes when made; `start()` begins the work."""
+
+    def __init__(self, store, poison):
+        import threading
+
+        from swarmkit_tpu_torch.api.objects import Task
+
+        self.store, self.poison = store, poison
+        self.ch = store.queue.watch(
+            matcher=lambda e: isinstance(getattr(e, "obj", None), Task),
+            limit=None)
+        self.halt = threading.Event()
+        self.writes = 0
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="agent-pump")
+
+    def start(self):
+        self.thread.start()
+
+    def stop(self):
+        self.halt.set()
+        self.store.queue.stop_watch(self.ch)
+        self.thread.join(10)
+
+    def _act(self, t):
+        from swarmkit_tpu_torch.api.types import TaskState
+
+        if t.desired_state == TaskState.RUNNING \
+                and t.status.state < TaskState.RUNNING:
+            return (TaskState.FAILED if t.spec.runtime.image == self.poison
+                    else TaskState.RUNNING)
+        if t.desired_state >= TaskState.SHUTDOWN \
+                and t.status.state <= TaskState.RUNNING:
+            return TaskState.SHUTDOWN
+        return None
+
+    def _run(self):
+        from swarmkit_tpu_torch.api.objects import EventDelete
+        from swarmkit_tpu_torch.store.watch import ChannelClosed
+
+        while not self.halt.is_set():
+            try:
+                events = [self.ch.get(timeout=0.05)] + self.ch.drain()
+            except TimeoutError:
+                continue
+            except ChannelClosed:
+                return
+            todo = list(dict.fromkeys(
+                e.obj.id for e in events if not isinstance(e, EventDelete)
+                and self._act(e.obj) is not None))
+            if not todo:
+                continue
+
+            def cb(tx):
+                for tid in todo:
+                    cur = tx.get_task(tid)
+                    state = None if cur is None else self._act(cur)
+                    if state is not None:
+                        c = cur.copy()
+                        c.status.state = state
+                        tx.update(c)
+                        self.writes += 1
+
+            self.store.update(cb)
+
+
+def replica_gate(store, down_nodes=()):
+    """From the columnar mirror: services (replicated, valid) whose
+    distinct runnable slots differ from their replicas; slots holding two
+    tasks desired RUNNING; runnable tasks not RUNNING yet; live tasks on a
+    node in `down_nodes`."""
+    from swarmkit_tpu_torch.api.types import TaskState
+
+    col = store.columnar
+    with store._lock:
+        n = len(col.ids)
+        valid, desired, state = (col.valid[:n].copy(), col.desired[:n].copy(),
+                                 col.state[:n].copy())
+        svc, slot = col.service_idx[:n].astype(np.int64), col.slot[:n].copy()
+        node = col.node_idx[:n].copy()
+        scol = col.service_cols
+        want = scol.replicas.copy()
+        counted = scol.valid & scol.replicated & ~scol.pending_delete
+        down = np.array([col.nodes.lookup(x) for x in down_nodes], np.int64)
+    run = int(TaskState.RUNNING)
+    live = valid & (desired <= run)
+    runnable = live & (state <= run)
+    width = int(slot.max()) + 2 if n else 1
+    keys = np.unique(svc[runnable] * width + slot[runnable])
+    per_service = np.bincount(keys // width, minlength=want.shape[0])
+    bad = int((counted & (per_service[:want.shape[0]] != want)).sum())
+    _, counts = np.unique(svc[valid & (desired == run)] * width
+                          + slot[valid & (desired == run)],
+                          return_counts=True)
+    on_down = int((live & np.isin(node, down[down > 0])).sum())
+    return bad, int((counts > 1).sum()), int((runnable & (state != run))
+                                             .sum()), on_down
+
+
+def wait_gate(store, what, down_nodes=()):
+    t0 = time.perf_counter()
+    while True:
+        g = replica_gate(store, down_nodes)
+        if not any(g):
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > REPL_BUDGET_S:
+            fail(f"[replicated] {what}: not converged after "
+                 f"{REPL_BUDGET_S:.0f} s: {g[0]} services without their "
+                 f"replicas, {g[1]} slots with two tasks desired RUNNING, "
+                 f"{g[2]} runnable tasks not RUNNING, {g[3]} live tasks on "
+                 "down nodes")
+        time.sleep(0.1)
+
+
+def _norm_decision(d):
+    if d is None:
+        return ([], [], [], False)
+    return (list(d.create_slots), list(d.victim_slots),
+            [[t.id for t in ts] for ts in d.dirty_slots],
+            bool(d.kick_update))
+
+
+def phase_replicated(seed, rec):
+    """The replicated-service reconcile path on the card (see the module
+    docstring, phase 15). Keeps K18's inputs of both startup censuses in
+    `rec`."""
+    import copy
+    import random
+    import threading
+
+    from swarmkit_tpu_torch.api.objects import Version
+    from swarmkit_tpu_torch.api.types import NodeStatusState, TaskState
+    from swarmkit_tpu_torch.orchestrator import batched as bmod
+    from swarmkit_tpu_torch.orchestrator import replicated as rmod
+    from swarmkit_tpu_torch.orchestrator import taskinit
+    from swarmkit_tpu_torch.orchestrator.restart import RestartSupervisor
+    from swarmkit_tpu_torch.ops import reconcile as rc
+    from swarmkit_tpu_torch.store import by
+    from swarmkit_tpu_torch.store.columnar import ColumnarTasks
+    from swarmkit_tpu_torch.store.memory import MemoryStore
+    from swarmkit_tpu_torch.utils.clock import Clock, FakeClock
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    store, ids = replicated_store(seed)
+    build_s = time.perf_counter() - t0
+    n_tasks = len(store.columnar.ids)
+    log(f"[replicated] store build {build_s:.4f} s: {len(ids)} services "
+        f"({REPL_WIDE} of {REPL_WIDE_REPLICAS} replicas, the rest of "
+        f"{REPL_REPLICAS}), {n_tasks} tasks on {REPL_NODES} nodes, then "
+        f"{REPL_SCALED} scaled up by 2, {REPL_SCALED} down by 1, "
+        f"{int(n_tasks * REPL_FAILED)} FAILED (host clock)")
+
+    # ---- hooks: host seconds of each part, the census on CUDA events
+    spent = {"check": 0.0, "restarts": 0, "decide": 0.0, "apply": 0.0,
+             "upload": 0.0, "kernel_host": 0.0, "download": 0.0,
+             "kernel_ms": 0.0, "restart_many": 0.0,
+             "restart_calls": 0}
+    real = {"check": taskinit.check_tasks, "up": rc._census_upload,
+            "kernel": rc._slot_state_kernel, "down": rc._census_download,
+            "gate": bmod.batch_should_restart, "batch": store.batch}
+    passes, grants = [], []
+    timing = {"on": True}     # off while the plain version is compared
+
+    def timed(key, fn, events=None):
+        def run(*a, **kw):
+            if not timing["on"]:
+                return fn(*a, **kw)
+            ev = None
+            if events is not None:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if ev is not None:
+                    ev[1].record()
+                    ev[1].synchronize()
+                    spent[events] += ev[0].elapsed_time(ev[1])
+                spent[key] += time.perf_counter() - t
+        return run
+
+    def busy_line(sp, start_s):
+        copies = sp["upload"] + sp["download"]
+        share = 100 * sp["kernel_ms"] / (1e3 * start_s)
+        most = 100 * (sp["kernel_ms"] / 1e3 + copies) / start_s
+        return (f"K18 {sp['kernel_ms']:.4f} ms between CUDA events around "
+                f"its launch: the card busy {share:.4f}% of on_start, at "
+                f"most {most:.4f}% with the copies' host seconds")
+
+    def check(*a):
+        fixed = real["check"](*a)
+        spent["restarts"] += fixed
+        return fixed
+
+    timed_kernel = timed("kernel_host", real["kernel"], "kernel_ms")
+
+    def kernel(*a):
+        rec.append(_clone(a))       # outside the timing
+        return timed_kernel(*a)
+
+    def gate(restart, pairs, now=None):
+        now = restart._clock.time() if now is None else now
+        keys = {restart._instance_key(t) for _, t in pairs}
+        hist = copy.deepcopy({k: v for k, v in restart._history.items()
+                              if k in keys})
+        out = real["gate"](restart, pairs, now)
+        grants.append((list(pairs), hist, now, out.tolist()))
+        return out
+
+    class Leader(rmod.ReplicatedOrchestrator):
+        """Says when its startup pass is over."""
+
+        def on_start(self, services):
+            try:
+                super().on_start(services)
+            finally:
+                self.started.set()
+
+    def decide_and_compare(br, cpu, sample_rng):
+        """Every decide_many of `br` (on the card) is held, under the
+        store's lock so that all read one snapshot, against `cpu`'s (the
+        plain version), the scalar decide_service of every service it
+        decided and of a seeded sample of the steady ones."""
+        real_decide = br.decide_many
+
+        def decide_many(service_ids, view=None):
+            with store._lock:
+                view = store.view() if view is None else view
+                t = time.perf_counter()
+                got = real_decide(service_ids, view=view)
+                spent["decide"] += time.perf_counter() - t
+                timing["on"] = False
+                try:
+                    want = cpu.decide_many(service_ids, view=view)
+                finally:
+                    timing["on"] = True
+                card = {k: _norm_decision(v) for k, v in got.items()}
+                if card != {k: _norm_decision(v) for k, v in want.items()}:
+                    fail("[replicated] decide_many on the card differs from "
+                         "decide_many with device='cpu'")
+                steady = sorted(set(service_ids) - set(got))
+                sample = sample_rng.sample(steady, min(REPL_SAMPLE,
+                                                       len(steady)))
+                for sid in list(got) + sample:
+                    svc = view.get_service(sid)
+                    live = [x for x in view.find_tasks(by.ByServiceID(sid))
+                            if x.desired_state <= TaskState.RUNNING]
+                    if _norm_decision(rmod.decide_service(svc, live)) != \
+                            card.get(sid, _norm_decision(None)):
+                        fail(f"[replicated] the decision for {sid} differs "
+                             "from the scalar decide_service")
+                passes.append(dict(decisions=len(got), sample=len(sample),
+                                   actionable=sum(d.actionable
+                                                  for d in got.values())))
+            return got
+        br.decide_many = decide_many
+
+    def leader(tag):
+        orch = Leader(store)
+        orch.started = threading.Event()
+        decide_and_compare(orch.batched, bmod.BatchedReconciler(
+            store, device="cpu"), random.Random(seed + len(passes)))
+        real_many = orch.restart.restart_many
+
+        def restart_many(*a):
+            t = time.perf_counter()
+            try:
+                return real_many(*a)
+            finally:
+                spent["restart_many"] += time.perf_counter() - t
+                spent["restart_calls"] += 1
+        orch.restart.restart_many = restart_many
+        for k in list(spent):
+            if k not in ("restart_many", "restart_calls"):
+                spent[k] = 0 if k == "restarts" else 0.0
+        t = time.perf_counter()
+        orch.start()
+        if not orch.started.wait(600):
+            fail(f"[replicated] {tag}: the startup pass did not finish")
+        return orch, time.perf_counter() - t
+
+    taskinit.check_tasks = timed("check", check)
+    rc._census_upload = timed("upload", real["up"])
+    rc._slot_state_kernel = kernel
+    rc._census_download = timed("download", real["down"])
+    bmod.batch_should_restart = gate
+    store.batch = timed("apply", real["batch"])
+    pump = AgentPump(store, "v2-poison")
+    orch = second = None
+    gc.collect()
+    gc.disable()          # 318,000 live objects: no collector passes
+    try:
+        # ---- 1-2: a new leader's startup pass, census on K18
+        orch, start_s = leader("leader 1")
+        s1 = dict(spent)
+        if not passes or passes[0]["actionable"] < 2 * REPL_SCALED:
+            fail(f"[replicated] the startup census found "
+                 f"{passes and passes[0]['actionable']} actionable services, "
+                 f"fewer than the {2 * REPL_SCALED} scaled ones")
+        if s1["restarts"] < int(n_tasks * REPL_FAILED):
+            fail(f"[replicated] check_tasks restarted {s1['restarts']} "
+                 "tasks, fewer than the FAILED ones")
+        log(f"[replicated] leader 1 on_start {start_s:.4f} s = check_tasks "
+            f"{s1['check']:.4f} ({s1['restarts']} restarts) + decide_many "
+            f"{s1['decide']:.4f} (census upload {s1['upload']:.4f}, K18 "
+            f"{s1['kernel_host']:.6f}, planes' download "
+            f"{s1['download']:.4f}) + apply {s1['apply']:.4f} "
+            f"({passes[0]['actionable']} actionable services) (host "
+            f"clock); {busy_line(s1, start_s)}")
+        log(f"[replicated] leader 1's {passes[0]['decisions']} decisions "
+            f"equal decide_many with device='cpu' and the scalar "
+            f"decide_service, and {passes[0]['sample']} steady services "
+            f"sampled are steady for decide_service too")
+
+        # ---- 3: the agents converge the store
+        pump.start()
+        conv_s = wait_gate(store, "after the startup pass")
+        log(f"[replicated] pump convergence {conv_s:.4f} s ({pump.writes} "
+            f"agent writes): every service has its replicas in distinct "
+            f"runnable slots, no slot has two tasks desired RUNNING")
+
+        # ---- 4: 1% of the nodes DOWN in one transaction
+        rng = np.random.default_rng(seed + 1)
+        down = [f"rnode-{i:05d}" for i in
+                rng.choice(REPL_NODES, REPL_DOWN, replace=False)]
+
+        def set_down(tx):
+            for nid in down:
+                n = tx.get_node(nid).copy()
+                n.status.state = NodeStatusState.DOWN
+                tx.update(n)
+
+        t = time.perf_counter()
+        store.update(set_down)
+        down_s = wait_gate(store, "after the node failure", down)
+        waited = time.perf_counter() - t
+        if spent["restart_calls"] < REPL_DOWN or not grants:
+            fail(f"[replicated] restart_many ran {spent['restart_calls']} "
+                 f"times for {REPL_DOWN} down nodes")
+        n_pairs = n_granted = 0
+        for pairs, hist, now, got in grants:
+            oracle = RestartSupervisor(MemoryStore(), clock=FakeClock(now))
+            oracle._history = hist
+            want = []
+            for svc, task in pairs:
+                want.append(oracle.should_restart(task, svc))
+                if want[-1]:
+                    oracle._record(task, svc)
+            oracle.stop()
+            if want != got:
+                fail("[replicated] restart_many's grants differ from "
+                     "sequential should_restart calls")
+            n_pairs += len(pairs)
+            n_granted += sum(got)
+        log(f"[replicated] {REPL_DOWN} nodes DOWN: restart_many "
+            f"{spent['restart_many']:.4f} s in {spent['restart_calls']} "
+            f"calls, {n_granted} of {n_pairs} restarts granted, equal to "
+            f"sequential should_restart calls; converged {down_s:.4f} s "
+            f"after the transaction ({waited:.4f} s with it) (host clock)")
+
+        # ---- 5: the update storm on the live loop
+        srng = random.Random(seed)
+        sids = [f"storm-{i:04d}" for i in range(STORM_SERVICES)]
+        poisoned = {sid for sid in sids if srng.random() < STORM_POISON}
+        t = time.perf_counter()
+        store.batch(lambda b: [b.update(lambda tx, sid=sid: tx.create(
+            repl_service(sid, STORM_REPLICAS))) for sid in sids])
+
+        def running(sid, image=None):
+            return [x for x in store.view().find_tasks(by.ByServiceID(sid))
+                    if x.desired_state <= TaskState.RUNNING
+                    and x.status.state == TaskState.RUNNING
+                    and (image is None or x.spec.runtime.image == image)]
+
+        while sum(len(running(s)) for s in sids) < len(sids) * STORM_REPLICAS:
+            if time.perf_counter() - t > STORM_BUDGET_S:
+                fail("[replicated] the storm's services never ran v1")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t
+
+        def push(b):
+            for sid in sids:
+                def one(tx, sid=sid):
+                    new = tx.get_service(sid).copy()
+                    new.previous_spec = copy.deepcopy(new.spec)
+                    new.spec = copy.deepcopy(new.spec)
+                    new.spec.task.runtime.image = (
+                        "v2-poison" if sid in poisoned else "v2")
+                    new.spec_version = Version(new.spec_version.index + 1)
+                    tx.update(new)
+                b.update(one)
+
+        def converged(sid):
+            svc = store.view().get_service(sid)
+            want = (("rollback_completed", "v1") if sid in poisoned
+                    else ("completed", "v2"))
+            run = running(sid)
+            return ((svc.update_status or {}).get("state") == want[0]
+                    and len({x.slot for x in run}) == STORM_REPLICAS
+                    and all(x.spec.runtime.image == want[1] for x in run))
+
+        t = time.perf_counter()
+        store.batch(push)
+        done = set()
+        while len(done) < len(sids):
+            done |= {s for s in sids if s not in done and converged(s)}
+            if time.perf_counter() - t > STORM_BUDGET_S:
+                fail(f"[replicated] the storm converged {len(done)} of "
+                     f"{len(sids)} services in {STORM_BUDGET_S:.0f} s")
+            time.sleep(0.1)
+        storm_s = time.perf_counter() - t
+        # quiet: no commit for a second (the last restart timers and the
+        # agents' answers landed) before leader 1 stops
+        t = time.perf_counter()
+        last = (store.version.index, time.perf_counter())
+        while time.perf_counter() - last[1] < 1.0:
+            if time.perf_counter() - t > STORM_BUDGET_S:
+                fail("[replicated] the store never went quiet after the "
+                     "storm")
+            time.sleep(0.1)
+            if store.version.index != last[0]:
+                last = (store.version.index, time.perf_counter())
+        planners = sum(th.name == "update-wave-planner"
+                       for th in threading.enumerate())
+        if planners != 1:
+            fail(f"[replicated] {planners} planner threads ran the storm")
+        stats = dict(orch.updater.planner.stats)
+        log(f"[replicated] storm: {len(sids)} services x {STORM_REPLICAS} "
+            f"up on v1 in {up_s:.4f} s; v2 pushed in one batch, "
+            f"{len(poisoned)} poisoned rolled back to v1 "
+            f"(ROLLBACK_COMPLETED), {len(sids) - len(poisoned)} COMPLETED "
+            f"on v2 in {storm_s:.4f} s (host clock) on one planner thread "
+            f"({stats})")
+        orch.stop()
+        if orch._thread.is_alive():
+            fail("[replicated] leader 1's event loop did not stop")
+
+        # ---- 6: a second leader on the converged store plans nothing
+        version = store.version.index
+        second, start2_s = leader("leader 2")
+        s2 = dict(spent)
+        if store.version.index != version or s2["restarts"] \
+                or passes[-1]["decisions"]:
+            fail(f"[replicated] leader 2 planned something: version "
+                 f"{version} -> {store.version.index}, {s2['restarts']} "
+                 f"restarts, {passes[-1]['decisions']} decisions")
+        log(f"[replicated] leader 2 on the converged store: on_start "
+            f"{start2_s:.4f} s = check_tasks {s2['check']:.4f} + "
+            f"decide_many {s2['decide']:.4f} (census upload "
+            f"{s2['upload']:.4f}, K18 {s2['kernel_host']:.6f}, download "
+            f"{s2['download']:.4f}); {busy_line(s2, start2_s)}; it planned "
+            f"nothing (store at version {version}), "
+            f"its decisions equal device='cpu' and {passes[-1]['sample']} "
+            f"sampled decide_service")
+        second.stop()
+        if second._thread.is_alive():
+            fail("[replicated] leader 2's event loop did not stop")
+
+        # ---- 7: the columnar mirror against a rebuild
+        t = time.perf_counter()
+        tasks = store.view().find_tasks()
+        services = store.view().find_services()
+        if not ColumnarTasks.snapshots_equal(
+                store.columnar.snapshot(),
+                ColumnarTasks.rebuild(tasks, services=services).snapshot()):
+            fail("[replicated] the columnar mirror differs from a rebuild")
+        log(f"[replicated] the columnar mirror of {len(tasks)} tasks equals "
+            f"a rebuild ({time.perf_counter() - t:.4f} s); the phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        gc.enable()
+        taskinit.check_tasks = real["check"]
+        rc._census_upload, rc._slot_state_kernel = real["up"], real["kernel"]
+        rc._census_download = real["down"]
+        bmod.batch_should_restart = real["gate"]
+        store.batch = real["batch"]
+        for o in (orch, second):
+            if o is not None:
+                o.stop()
+        pump.stop()
+        wheel = Clock._wheel
+        if wheel is not None:             # the process-wide timer service
+            wheel.stop()
+            if wheel._thread is not None:
+                wheel._thread.join(5)
+            Clock._wheel = None
+    if len(rec) != 2:
+        fail(f"[replicated] {len(rec)} K18 censuses, not the 2 startup "
+             "passes'")
+
+
+def check_replicated_kernels(rec):
+    """K18 against its plain version on the two recorded startup censuses
+    and on a synthetic 2^20-service x 16-slot census (3 M tasks); times
+    by CUDA events through the wrapper the census calls (its checks and
+    one read of the index ranges included) and, of the launch alone,
+    from a CUDA graph; bound from this run's data.
+    No single PyTorch call gives the three planes and the row sums: the
+    library time is none."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import reconcile as rc
+
+    dev = resolve_device()
+    rng = np.random.default_rng(11)
+    S, M, T = 1 << 20, 16, 3_000_000
+    synth = [torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, S, T).astype(np.int32),
+        rng.integers(0, M, T).astype(np.int32), rng.random(T) < 0.6,
+        rng.random(T) < 0.4)]
+    cases = [(f"startup census {i + 1}", *r) for i, r in enumerate(rec)]
+    cases.append(("2^20 x 16", *synth, S, M))
+    out = {}
+    for name, sidx, slot, runnable, running, S, M in cases:
+        args = (sidx, slot, runnable, running, S, M)
+        got = rc.replica_slot_state(*args)
+        want = rc.replica_slot_state_plain(*args)
+        err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        if err:
+            fail(f"replica_slot_state differs from its plain version on "
+                 f"{name} (err {err})")
+        ms, plain_ms = _time_pair(lambda: rc.replica_slot_state(*args),
+                                  lambda: rc.replica_slot_state_plain(*args))
+        g_ms = graph_ms(lambda: rc._slot_state_kernel(*args))
+        T = sidx.shape[0]
+        b_ms, b_by = bound(10 * T + 3 * S * M + 4 * S, 3 * T + S * M)
+        log(f"[kernels] replica_slot_state on {name} ({S} x {M} = {S * M} "
+            f"cells, {T} tasks): equal to plain; {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms; graph {g_ms:.5f} ms; library none; bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        out.setdefault("replica_slot_state", dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, graph_ms=g_ms,
+            shape=f"{S}x{M}, T={T}"))
+    return out
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -2464,6 +3146,8 @@ SOURCES = {
                                 "swarmkit_tpu/ops/reconcile.py:136"),
     "grant_order": ("swarmkit_tpu_torch/csrc/grant_order.cu",
                     "swarmkit_tpu/ops/alloc.py:45"),
+    "replica_slot_state": ("swarmkit_tpu_torch/csrc/replica_slot_state.cu",
+                           "swarmkit_tpu/ops/reconcile.py:202"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
@@ -2480,7 +3164,8 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
          "reconcile": ("unpack_bits", "task_count_flat",
                        "global_diff_churn_burst", "global_diff",
                        "diff_compact"),
-         "alloc": ("grant_order",)}
+         "alloc": ("grant_order",),
+         "replicated": ("replica_slot_state",)}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -2532,7 +3217,8 @@ def main() -> int:
                 "diff_compact": rc.diff_compact,
                 "task_count_flat": rc.task_count_flat,
                 "global_diff_churn_burst": rc.global_diff_churn_burst,
-                "grant_order": ga.grant_order_launch}
+                "grant_order": ga.grant_order_launch,
+                "replica_slot_state": rc.replica_slot_state}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
@@ -2573,6 +3259,14 @@ def main() -> int:
         fail(f"[alloc] K19 launched {by_path['alloc']['grant_order']} times, "
              f"fewer than the {ALLOC_NODES // 200} startup chunks")
     results.update(check_alloc_kernels(alloc_rec))
+    repl_rec = []
+    by_path["replicated"] = drive("replicated", wrappers,
+                                  lambda: phase_replicated(seed, repl_rec))
+    if by_path["replicated"]["replica_slot_state"] < 2:
+        fail(f"[replicated] K18 launched "
+             f"{by_path['replicated']['replica_slot_state']} times, not once "
+             "for each leader's startup census")
+    results.update(check_replicated_kernels(repl_rec))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

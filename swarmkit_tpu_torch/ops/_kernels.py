@@ -88,6 +88,9 @@ ENTRIES = {
         "skt_grant_order": [_P] * 4 + [_I] * 3 + [_P],
         "skt_grant_order_tile": [],
     },
+    "replica_slot_state": {
+        "skt_replica_slot_state": [_P] * 8 + [_I] * 3 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
-"""Batched global-service reconciliation: desired-vs-actual set diff (the
-port of the JAX package's `ops/reconcile.py`, but its replicated slot
-census, which comes with the replicated orchestrator).
+"""Batched reconciliation: the global services' desired-vs-actual set diff
+and the replicated services' slot census (the port of the JAX package's
+`ops/reconcile.py`).
 
     has[s, n]      = any runnable task of service s on node n
     create[s, n]   = eligible[s, n] ∧ ¬has[s, n]     (node missing its task)
@@ -26,7 +26,11 @@ count carry returns new tensors and leaves its inputs as they are.
     rounds in one launch; `global_diff_churn` is one round, with the
     touched pairs;
   * `unpack_eligibility` (K10, over `ops/bitpack.py`): the cold bit-packed
-    eligibility upload.
+    eligibility upload;
+  * `replica_slot_state` (K18, csrc/replica_slot_state.cu): the replicated
+    orchestrator's slot census (three flat bool planes over S x M slots
+    and the runnable-slot count of each service), dispatched from host
+    arrays by `compute_slot_state`.
 
 Integer rules kept from the reference: ids past the last node are clipped
 to N - 1 in the dense diff and the count; the churn round's flat index is
@@ -463,10 +467,104 @@ def global_diff_churn(eligible, task_nodes, cnt_flat, rows, cols, vals):
             (codes & 4).bool())
 
 
+# ------------------------------------------------- K18 the slot census
+def replica_slot_state_plain(service_idx, slot, runnable, running,
+                             n_services: int, n_slots: int):
+    """Plain PyTorch census: (used, slot_runnable, slot_running) bool[S *
+    M], runnable_slots int32[S]."""
+    key = service_idx.long() * n_slots + slot.long()
+    planes = []
+    for pick in (None, runnable, running):
+        plane = torch.zeros(n_services * n_slots, dtype=torch.bool,
+                            device=service_idx.device)
+        k = key if pick is None else key[pick]
+        plane.index_put_((k,), torch.ones_like(k, dtype=torch.bool))
+        planes.append(plane)
+    rows = planes[1].view(n_services, n_slots).sum(1, dtype=torch.int32)
+    return (*planes, rows)
+
+
+def _census_check(service_idx, slot, runnable, running, n_services: int,
+                  n_slots: int) -> None:
+    """Refuse (ValueError) what the kernel does not take: a census of 2^31
+    cells or more, where the reference's int32 key wraps, and inputs that
+    are not four 1-D tensors of one length (int32, int32, bool, bool)."""
+    if n_services < 0 or n_slots < 0:
+        raise ValueError(f"census of {n_services} x {n_slots} slots")
+    if n_services * n_slots >= _I32:
+        raise ValueError(
+            f"slot census: S * M = {n_services} * {n_slots} >= 2^31; the "
+            "reference's flat int32 key would wrap silently there")
+    want = (("service_idx", service_idx, torch.int32),
+            ("slot", slot, torch.int32), ("runnable", runnable, torch.bool),
+            ("running", running, torch.bool))
+    for name, t, dtype in want:
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+                or t.dim() != 1 or t.shape[0] != service_idx.shape[0]:
+            got = f"{t.dtype}{list(t.shape)}" \
+                if isinstance(t, torch.Tensor) else type(t).__name__
+            raise ValueError(f"{name}: expected a 1-D {dtype} tensor of "
+                             f"{service_idx.shape[0]} tasks, got {got}")
+
+
+def _census_ranges(lo_s, hi_s, lo_m, hi_m, n_services: int,
+                   n_slots: int) -> None:
+    if lo_s < 0 or hi_s >= n_services:
+        raise ValueError(f"service indices outside [0, {n_services})")
+    if lo_m < 0 or hi_m >= n_slots:
+        raise ValueError(f"slots outside [0, {n_slots})")
+
+
+def _slot_state_kernel(service_idx, slot, runnable, running,
+                       n_services: int, n_slots: int):
+    """K18 on CUDA tensors whose shapes and ranges are checked: (used,
+    slot_runnable, slot_running, runnable_slots)."""
+    dev = service_idx.device
+    planes = [torch.empty(n_services * n_slots, dtype=torch.bool,
+                          device=dev) for _ in range(3)]
+    rows = torch.empty(n_services, dtype=torch.int32, device=dev)
+    rc = _kernels.lib("replica_slot_state").skt_replica_slot_state(
+        service_idx.data_ptr(), slot.data_ptr(), runnable.data_ptr(),
+        running.data_ptr(), *(p.data_ptr() for p in planes),
+        rows.data_ptr(), service_idx.shape[0], n_services, n_slots,
+        _kernels.stream_of(service_idx))
+    _kernels.check(rc, "replica_slot_state")
+    replica_slot_state.launches += 1
+    return (*planes, rows)
+
+
+def replica_slot_state(service_idx, slot, runnable, running,
+                       n_services: int, n_slots: int):
+    """The slot census of S = n_services services over slots [0, M =
+    n_slots): service_idx int32[T] in [0, S), slot int32[T] in [0, M),
+    runnable/running bool[T]. Returns (used, slot_runnable, slot_running)
+    as flat bool[S * M], keyed service_idx * M + slot, and runnable_slots
+    int32[S], the row sums of slot_runnable. The plain version for CPU
+    tensors, kernel K18 (csrc/replica_slot_state.cu) for CUDA tensors.
+    Raises ValueError at S * M >= 2^31 (where the reference's key wraps),
+    on an index outside its range (the reference's numpy mirror raises
+    IndexError there, its jit drops it) and on a wrong dtype or rank."""
+    _census_check(service_idx, slot, runnable, running, n_services, n_slots)
+    route = _kernels.route("slot census", service_idx, slot, runnable,
+                           running)
+    if service_idx.shape[0]:
+        lo_s, hi_s, lo_m, hi_m = torch.stack(
+            [service_idx.min(), service_idx.max(), slot.min(),
+             slot.max()]).tolist()
+        _census_ranges(lo_s, hi_s, lo_m, hi_m, n_services, n_slots)
+    if route == "plain":
+        return replica_slot_state_plain(service_idx, slot, runnable, running,
+                                        n_services, n_slots)
+    return _slot_state_kernel(*(_contiguous(t, n) for t, n in (
+        (service_idx, "service_idx"), (slot, "slot"), (runnable, "runnable"),
+        (running, "running"))), n_services, n_slots)
+
+
 global_diff.launches = 0
 diff_compact.launches = 0
 task_count_flat.launches = 0
 global_diff_churn_burst.launches = 0
+replica_slot_state.launches = 0
 
 
 # ------------------------------------------------------------- host side
@@ -495,3 +593,57 @@ def compute_diff(eligible, task_nodes, device=None):
             .to(dev))
         return create.cpu().numpy(), shutdown.cpu().numpy()
     return global_diff_np(np.asarray(eligible), np.asarray(task_nodes))
+
+
+def replica_slot_state_np(service_idx, slot, runnable, running,
+                          n_services: int, n_slots: int):
+    """numpy mirror of `replica_slot_state` (the small-census path and the
+    parity oracle; a copy of the reference's, with int64 keys)."""
+    key = service_idx.astype(np.int64) * n_slots + slot
+    flat = n_services * n_slots
+    used = np.zeros(flat, bool)
+    used[key] = True
+    slot_runnable = np.zeros(flat, bool)
+    np.maximum.at(slot_runnable, key, runnable)
+    slot_running = np.zeros(flat, bool)
+    np.maximum.at(slot_running, key, running)
+    runnable_slots = slot_runnable.reshape(
+        n_services, n_slots).sum(axis=1).astype(np.int32)
+    return used, slot_runnable, slot_running, runnable_slots
+
+
+def _census_upload(arrays, dev):
+    """The census inputs (host arrays, checked) on `dev`."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+def _census_download(out):
+    """The census outputs as host numpy arrays."""
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def compute_slot_state(service_idx, slot, runnable, running,
+                       n_services: int, n_slots: int, device=None):
+    """Backend-selecting census over host arrays, the reference's rule:
+    kernel K18 where DIFF_THRESHOLD <= S * M < 2^31 (on `device`: None is
+    the card, and raises without one; "cpu" runs the plain version), numpy
+    below the threshold and again from 2^31 cells, where the kernel's int32
+    key would wrap and the numpy mirror's int64 keys stay exact. Both give
+    the same answer. Service indices outside [0, S) and slots outside
+    [0, M) raise ValueError on every branch. Returns numpy arrays."""
+    service_idx, slot = np.asarray(service_idx), np.asarray(slot)
+    if service_idx.size:
+        _census_ranges(int(service_idx.min()), int(service_idx.max()),
+                       int(slot.min()), int(slot.max()), n_services, n_slots)
+    sidx, sl = service_idx.astype(np.int32), slot.astype(np.int32)
+    runnable = np.asarray(runnable, bool)
+    running = np.asarray(running, bool)
+    flat = n_services * n_slots
+    if DIFF_THRESHOLD <= flat < _I32:
+        ins = _census_upload((sidx, sl, runnable, running),
+                             resolve_device(device))
+        return _census_download(replica_slot_state(*ins, n_services,
+                                                   n_slots))
+    return replica_slot_state_np(sidx, sl, runnable, running, n_services,
+                                 n_slots)

@@ -7,9 +7,7 @@ desired=SHUTDOWN, creates the replacement in the same slot with
 desired=READY, and promotes it to RUNNING after the configured delay
 (DelayStart, restart.go:433-524).
 
-The port's copy of the JAX package's `orchestrator/restart.py`, without
-`restart_many` (the batched gate of the replicated plane, which the port
-has not reached).
+The port's copy of the JAX package's `orchestrator/restart.py`.
 """
 from __future__ import annotations
 
@@ -43,8 +41,9 @@ class RestartSupervisor:
         self._delays: dict[str, threading.Timer] = {}
         self._lock = make_lock('orchestrator.restart.lock')
         self._stopped = False
-        # injectable time source: FakeClock window-edge pins read the
-        # same clock the gate does
+        # injectable time source: the batched restart gate
+        # (orchestrator/batched.py) and FakeClock window-edge pins read
+        # the same clock the scalar gate does
         self._clock = clock or REAL_CLOCK
 
     def stop(self):
@@ -70,6 +69,25 @@ class RestartSupervisor:
             return
 
         self._spawn_replacement(tx, cluster, service, task)
+
+    def restart_many(self, tx, cluster, pairs) -> None:
+        """Batch form of `restart` for many dead tasks in ONE
+        transaction (node-down rescheduling): the gate runs VECTORIZED
+        (orchestrator/batched.py batch_should_restart, bit-identical to
+        sequential scalar calls including interleaved history records),
+        then each granted task spawns its replacement exactly like the
+        scalar path."""
+        from .batched import batch_should_restart
+
+        grants = batch_should_restart(self, pairs)
+        for (service, task), granted in zip(pairs, grants):
+            cur = tx.get_task(task.id)
+            if cur is not None and cur.desired_state < TaskState.SHUTDOWN:
+                cur = cur.copy()
+                mark_shutdown(cur)
+                tx.update(cur)
+            if granted:
+                self._spawn_replacement(tx, cluster, service, task)
 
     def _spawn_replacement(self, tx, cluster, service: Service,
                            task: Task) -> None:
