@@ -4,7 +4,7 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the 19 kernels from csrc/, all at once, and
+  2. build    — nvcc builds the 22 kernels from csrc/, all at once, and
                 cc the native commit walk (native/_hostops.c); the run
                 fails unless the native module loaded;
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
@@ -139,9 +139,27 @@ result line) if any phase fails:
                 K18 and download apart, and the card's busy share of
                 on_start; then K18 against its plain version on both
                 recorded censuses and on a 2^20 x 16 census.
+ 16. mesh     — the one-shot mesh path as a k-way node split of the card
+                (__graft_entry__.dryrun_multichip's stages): sharded
+                placement of random-cluster-shaped and example problems at
+                35 nodes for k = 1, 2, 8 under spread, topology and binpack,
+                equal to the CPU oracle and the one-device counts; the
+                manager-axis tally (K22) at 8 x 2,048 and 8 x 2^20 against
+                numpy; the north-star fused step (example_cluster(10,245,
+                101, 990): LMAX 3, ports, generic resources; a 5 x 2^15 log)
+                against the oracle and the sorted-frontier rule; the
+                scale-out fused step (synth_shard_cluster: 131,072 nodes,
+                16 groups, 1,048,576 tasks) under spread, binpack and
+                topology, its commit equal to replay_commit, its counts at
+                8 shards equal to 1 shard and to the one-device
+                cluster_step, the invariant sweep and the sampled-shard
+                oracle on 2 shards (8 shards twice: the first call of
+                the shapes, then again); then K20-K22 against their plain
+                versions on the scale-out inputs (CUDA events and a CUDA
+                graph).
 
-Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14 and 15)
-runs with every launch count set to 0 just before it, and fails unless
+Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14, 15 and
+16) runs with every launch count set to 0 just before it, and fails unless
 each of its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
@@ -150,6 +168,7 @@ line of its output is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import random
@@ -3108,6 +3127,353 @@ def check_replicated_kernels(rec):
     return out
 
 
+# --------------------------------------------------------------- the mesh
+MESH_SHARDS = 8               # the dry run's device count
+MESH_SPLITS = (1, 2, MESH_SHARDS)
+MESH_PARITY_NODES = 4 * MESH_SHARDS + 3   # __graft_entry__.py:74, not k-divisible
+MESH_MANAGER_LOGS = (2_048, 1 << 20)      # __graft_entry__.py:167, and 2^20
+MESH_NORTH = (1280 * MESH_SHARDS + 5, 101, 990)   # __graft_entry__.py:192
+MESH_LOG = 1 << 15                        # __graft_entry__.py:199
+SCALE_NODES = 16_384 * MESH_SHARDS        # __graft_entry__.py:231
+SCALE_GPS = 2                             # groups per shard: 16 groups
+SCALE_TASKS = 65_536                      # a group: 1,048,576 tasks in all
+
+
+def frontier_acks(rng, managers, log_len):
+    """Each manager acked a prefix of the log: random frontiers in its
+    second half (the dry run's shape)."""
+    fr = rng.randint(log_len // 2, log_len, managers)
+    acks = np.zeros((managers, log_len), bool)
+    for m in range(managers):
+        acks[m, :fr[m]] = True
+    return acks, fr
+
+
+def mesh_parity_problems(seed):
+    """random_cluster-shaped problems at 35 nodes (random labels,
+    platforms, resources and plugins; small flat services) under spread,
+    topology and binpack, and the dry run's example cluster (spread trees,
+    ports, generic resources) under spread and binpack."""
+    from swarmkit_tpu_torch.models.cluster_step import example_cluster
+    from swarmkit_tpu_torch.scheduler.encode import encode
+
+    out = []
+    for i in range(3):
+        rng = random.Random(seed * 100 + i)
+        infos = grid_nodes(rng, MESH_PARITY_NODES)
+        groups = grid_groups(i, n_services=4, per_service=16 + 8 * i)
+        out.append((f"grid {i} spread", encode(infos, groups)))
+        out.append((f"grid {i} topology", encode(
+            infos, groups, strategy="topology", topology="node.labels.zone")))
+        out.append((f"grid {i} binpack", encode(infos, groups,
+                                                strategy="binpack")))
+    infos, groups = example_cluster(MESH_PARITY_NODES, 7, 16, seed)
+    out.append(("example spread", encode(infos, groups)))
+    out.append(("example binpack", encode(infos, groups, strategy="binpack")))
+    return out
+
+
+def phase_mesh(seed, rec):
+    """The one-shot mesh path on the card as a k-way node split: the
+    placement parity, the manager-axis tally, the north-star fused step
+    and the scale-out fused step with its strategy sweep
+    (__graft_entry__.dryrun_multichip's stages)."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.models.cluster_step import (
+        cluster_step,
+        example_cluster,
+        synth_shard_cluster,
+    )
+    from swarmkit_tpu_torch.ops import placement as pl
+    from swarmkit_tpu_torch.ops import raft_replay as rr
+    from swarmkit_tpu_torch.parallel import mesh
+    from swarmkit_tpu_torch.parallel.shard_parity import (
+        check_fill_invariants,
+        sampled_shard_parity,
+    )
+    from swarmkit_tpu_torch.scheduler import batch
+    from swarmkit_tpu_torch.scheduler.encode import encode, kernel_args
+
+    dev = resolve_device()
+    t_phase = time.perf_counter()
+    meshes = {k: mesh.make_mesh(k) for k in MESH_SPLITS}
+
+    # 1. placement parity: k = 1, 2, 8 over 35 nodes (3 or 5 phantoms)
+    t0 = time.perf_counter()
+    problems = mesh_parity_problems(seed)
+    for name, p in problems:
+        strategy = 1 if p.strategy == "binpack" else 0
+        oracle = batch.cpu_schedule_encoded(p)
+        one = pl.schedule_groups(*kernel_args(p), strategy=strategy)[0]
+        if not np.array_equal(one.cpu().numpy(), oracle):
+            fail(f"[mesh] {name}: the one-device counts differ from the "
+                 "oracle")
+        for k, m in meshes.items():
+            got = mesh.sharded_schedule(p, m)
+            if not np.array_equal(got, oracle):
+                fail(f"[mesh] {name}: {k}-shard counts differ from the CPU "
+                     "oracle and the one-device schedule_groups")
+    log(f"[mesh] placement parity: {len(problems)} problems x k in "
+        f"{MESH_SPLITS} at {MESH_PARITY_NODES} nodes equal to the CPU oracle "
+        f"and the one-device counts ({time.perf_counter() - t0:.2f} s)")
+
+    # 2. the manager-axis tally: one manager a shard
+    rng = np.random.RandomState(seed)
+    mm = mesh.make_mesh(MESH_SHARDS, axis="managers")
+    fn = rr.sharded_replay_commit(mm, "managers")
+    for E in MESH_MANAGER_LOGS:
+        acks = rng.rand(MESH_SHARDS, E) < 0.75
+        acks[:, :E // 4] |= rng.rand(MESH_SHARDS, E // 4) < 0.99
+        quorum = MESH_SHARDS // 2 + 1
+        commit, committed = fn(acks, quorum)
+        want = _np_commit(acks, quorum)
+        if int(commit) != want or not np.array_equal(
+                committed.cpu().numpy(), np.arange(E) < want):
+            fail(f"[mesh] manager-axis tally {MESH_SHARDS} x {E}: commit "
+                 f"{int(commit)} != numpy {want}")
+        rec["tally managers"] = (acks, quorum)
+        log(f"[mesh] manager-axis tally {MESH_SHARDS} x {E}: commit "
+            f"{want} equal to numpy")
+
+    # 3. the north-star fused step: LMAX >= 3, ports, generic resources
+    t0 = time.perf_counter()
+    n_nodes, n_groups, tpg = MESH_NORTH
+    p = encode(*example_cluster(n_nodes, n_groups, tpg, seed))
+    t_enc = time.perf_counter() - t0
+    lmax = p.spread_rank.shape[1]
+    if lmax < 3 or not p.has_ports.any() or not (p.need_res[:, 2:] > 0).any():
+        fail(f"[mesh] north star: LMAX {lmax}, ports "
+             f"{bool(p.has_ports.any())}, generic resources: the dry run "
+             "wants all three")
+    acks, fr = frontier_acks(np.random.RandomState(seed + 1), N_MANAGERS,
+                             MESH_LOG)
+    quorum = N_MANAGERS // 2 + 1
+    stats = {}
+    counts, commit = mesh.sharded_cluster_step(p, acks, np.int32(quorum),
+                                               meshes[MESH_SHARDS],
+                                               stats=stats)
+    oracle = batch.cpu_schedule_encoded(p)
+    if not np.array_equal(counts, oracle):
+        fail("[mesh] north star: 8-shard counts differ from the CPU oracle")
+    if commit != int(np.sort(fr)[N_MANAGERS - quorum]):
+        fail(f"[mesh] north star: commit {commit} != the sorted-frontier "
+             f"rule {int(np.sort(fr)[N_MANAGERS - quorum])}")
+    log(f"[mesh] north star: {int(counts.sum())} of "
+        f"{int(p.n_tasks.sum())} tasks on {n_nodes} nodes over "
+        f"{MESH_SHARDS} shards (LMAX {lmax}), equal to the CPU oracle; "
+        f"commit {commit} of {MESH_LOG} equal to the sorted-frontier rule; "
+        f"encode {t_enc:.2f} s, upload {stats['upload_s']:.4f} s, fill "
+        f"{stats['fill_s']:.4f} s, pull {stats['pull_s']:.4f} s, H2D "
+        f"{stats['h2d_bytes']} B (host clock)")
+
+    # 4. the scale-out fused step and the strategy sweep
+    acks, _ = frontier_acks(np.random.RandomState(seed + 3), N_MANAGERS,
+                            MESH_LOG)
+    rec["tally log"] = (acks, quorum)
+    want_commit = int(rr.replay_commit(torch.from_numpy(acks).to(dev),
+                                       quorum)[0])
+    for strat in ("spread", "binpack", "topology"):
+        t0 = time.perf_counter()
+        p, gshard = synth_shard_cluster(
+            SCALE_NODES, MESH_SHARDS, groups_per_shard=SCALE_GPS,
+            tasks_per_group=SCALE_TASKS, seed=seed, lmax=2, strategy=strat)
+        t_build = time.perf_counter() - t0
+        rec[f"scale {strat}"] = p
+        s = 1 if strat == "binpack" else 0
+        # 8 shards twice (the first call of the strategy's shapes in the
+        # process, then again), then 1 shard
+        runs = []
+        for k in (MESH_SHARDS, MESH_SHARDS, 1):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counts, commit = mesh.sharded_cluster_step(
+                p, acks, np.int32(quorum), meshes[k], stats=stats)
+            runs.append((counts, time.perf_counter() - t0, stats))
+            if commit != want_commit:
+                fail(f"[mesh] scale-out {strat}, {k} shards: commit "
+                     f"{commit} != replay_commit {want_commit}")
+        t0 = time.perf_counter()
+        single = cluster_step(torch.from_numpy(acks).to(dev), quorum,
+                              *kernel_args(p), strategy=s)
+        if int(single[2]) != want_commit:
+            fail(f"[mesh] scale-out {strat}: the one-device cluster_step's "
+                 "commit differs")
+        single = single[0].cpu().numpy()
+        t_single = time.perf_counter() - t0
+        counts = runs[0][0]
+        if not all(np.array_equal(counts, c) for c in
+                   (runs[1][0], runs[2][0], single)):
+            fail(f"[mesh] scale-out {strat}: 8-shard, 1-shard and "
+                 "one-device counts differ")
+        t0 = time.perf_counter()
+        inv = check_fill_invariants(p, counts)
+        checked = sampled_shard_parity(p, counts, gshard, MESH_SHARDS, 2)
+        t_check = time.perf_counter() - t0
+        split = [f"{wall:.4f} s = upload {st['upload_s']:.4f} + fill "
+                 f"{st['fill_s']:.4f} + pull {st['pull_s']:.4f}"
+                 for _, wall, st in runs]
+        st = runs[0][2]
+        log(f"[mesh] scale-out {strat}: {inv['placed']} of {inv['tasks']} "
+            f"tasks on {inv['nodes']} nodes, {inv['groups']} groups; "
+            f"8-shard = 1-shard = one-device cluster_step counts; commit "
+            f"{want_commit} = replay_commit; invariants and sampled-shard "
+            f"parity on shards {checked} ok ({t_check:.2f} s); 8 shards "
+            f"(H2D {st['h2d_bytes']} B, D2H {st['d2h_bytes']} B): first "
+            f"{split[0]}, again {split[1]}; 1 shard {split[2]}; one-device "
+            f"cluster_step {t_single:.4f} s; build {t_build:.2f} s (host "
+            f"clock)")
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def _step_ms(step, tables, fresh, G, reps):
+    """Mean device ms per group step: G steps from fresh states, by CUDA
+    events, over `reps` runs."""
+    total = 0.0
+    for _ in range(reps):
+        states = fresh()
+        outs = [torch.zeros((G, t.mask.shape[1]), dtype=torch.int32,
+                            device=t.mask.device) for t in tables]
+        flags = torch.zeros(G, dtype=torch.int32, device=tables[0].mask.device)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for g in range(G):
+            step(tables, states, g, outs, flags)
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / (reps * G)
+
+
+def _graph_step_ms(step, tables, fresh, G, reps=5):
+    """Mean device ms per group step from a CUDA graph of the G steps and
+    the copies that restore the state before them (the steps fold it in
+    place); the copies are a few MB, microseconds beside the steps."""
+    pristine = fresh()
+    states = fresh()
+    dev = tables[0].mask.device
+    outs = [torch.zeros((G, t.mask.shape[1]), dtype=torch.int32, device=dev)
+            for t in tables]
+    flags = torch.zeros(G, dtype=torch.int32, device=dev)
+
+    def run():
+        for st, src in zip(states, pristine):
+            for a, b in zip(st, src):
+                a.copy_(b)
+        for g in range(G):
+            step(tables, states, g, outs, flags)
+
+    return graph_ms(run, iters=1, reps=reps) / G
+
+
+def check_mesh_kernels(rec):
+    """K20-K22 against their plain versions on the [mesh] phase's
+    scale-out inputs (131,072 nodes over 8 shards, 16 groups; the
+    manager-axis 8 x 2^20 acks; the log-split 5 x 2^15 acks); times by
+    CUDA events per launch, and from a CUDA graph (a cooperative launch
+    can be captured); bound from this run's shapes. No single PyTorch call
+    computes them: the library time is none."""
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import raft_replay as rr
+    from swarmkit_tpu_torch.ops.placement import FillState
+    from swarmkit_tpu_torch.parallel import fill, mesh
+
+    dev = resolve_device()
+    m = mesh.make_mesh(MESH_SHARDS)
+    out = {}
+    for name, key, step, plain, ops_fill in (
+            ("sharded_water_fill_step", "scale spread",
+             fill.sharded_water_fill_step, fill.sharded_water_fill_step_plain,
+             None),
+            ("sharded_binpack_fill_step", "scale binpack",
+             fill.sharded_binpack_fill_step,
+             fill.sharded_binpack_fill_step_plain, 11)):
+        p = rec[key]
+        args, _ = mesh.shard_problem(p, m)
+        tables, base, nb = fill.fill_inputs(args)
+
+        def fresh(base=base):
+            return [FillState(*(x.clone() for x in st)) for st in base]
+        if step is fill.sharded_water_fill_step:
+            step = functools.partial(step, n_branches=nb)
+        G = p.n_tasks.shape[0]
+        got_s, want_s = fresh(), fresh()
+        got, f_k = fill.sharded_fill(tables, got_s, 0 if ops_fill is None
+                                     else 1, nb)
+        want = [torch.zeros_like(c) for c in got]
+        f_p = torch.zeros_like(f_k)
+        for g in range(G):
+            plain(tables, want_s, g, want, f_p)
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+        for a, b in zip(got_s, want_s):
+            err = max([err] + [int((x.int() - y.int()).abs().max())
+                               for x, y in zip(a, b)])
+        if err or f_k.any() or f_p.any():
+            fail(f"{name} differs from its plain version on the scale-out "
+                 f"{key} (err {err}, flags {f_k.tolist()} / {f_p.tolist()})")
+        _step_ms(step, tables, fresh, G, 1)                # warm-up
+        ms = _step_ms(step, tables, fresh, G, 5)
+        g_ms = _graph_step_ms(step, tables, fresh, G)
+        plain_ms = _step_ms(plain, tables, fresh, G, 1)
+        N = MESH_SHARDS * tables[0].mask.shape[1]
+        R, PV = p.need_res.shape[1], p.group_ports.shape[1]
+        lmax = 0 if ops_fill is not None else p.spread_rank.shape[1]
+        nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
+        extra = 3 * lmax + 31 * 4 if ops_fill is None else ops_fill
+        b_ms, b_by = bound(nbytes, N * (2 * R + 2 * PV + 6 + extra))
+        slots = f", {nb} branch slots" if ops_fill is None else ""
+        log(f"[kernels] {name} on the scale-out {key.split()[1]} "
+            f"({MESH_SHARDS} shards x {N // MESH_SHARDS} nodes, LMAX "
+            f"{lmax}{slots}): equal to plain over {G} steps; "
+            f"{ms:.4f} ms/launch, graph {g_ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms; library none; bound {b_ms:.5f} ms ({b_by})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         graph_ms=g_ms, shape=f"{MESH_SHARDS}x"
+                         f"{N // MESH_SHARDS}, G={G}, LMAX {lmax}")
+
+    rows = []
+    for layout, key in (("managers", "tally managers"), ("log", "tally log")):
+        acks, quorum = rec[key]
+        M, E = acks.shape
+        k = MESH_SHARDS
+        if layout == "log":
+            acks = np.pad(acks, ((0, 0), (0, (-E) % k)))
+        t = torch.from_numpy(acks)
+        dim = 0 if layout == "managers" else 1
+        parts = [s.contiguous().to(dev)
+                 for s in torch.split(t, t.shape[dim] // k, dim)]
+        q = torch.tensor(quorum, dtype=torch.int32, device=dev)
+        gc, gm = rr.sharded_replay_tally(parts, q, layout)
+        pc, pm = rr.sharded_replay_tally_plain(parts, q, layout)
+        if layout == "log":
+            gm, pm = torch.cat(gm), torch.cat(pm)
+        err = max(abs(int(gc) - int(pc)), int((gm.int() - pm.int())
+                                              .abs().max()))
+        if err:
+            fail(f"sharded_replay_tally ({layout}) differs from its plain "
+                 f"version (err {err})")
+        ms, plain_ms = _time_pair(
+            lambda: rr.sharded_replay_tally(parts, q, layout),
+            lambda: rr.sharded_replay_tally_plain(parts, q, layout))
+        g_ms = graph_ms(lambda: rr.sharded_replay_tally(parts, q, layout)) \
+            if layout == "managers" else None
+        b_ms, b_by = bound(M * acks.shape[1] + acks.shape[1] + 8,
+                           2 * M * acks.shape[1])
+        log(f"[kernels] sharded_replay_tally, {layout} split ({k} shards, "
+            f"{M} x {acks.shape[1]}, commit {int(gc)}): equal to plain; "
+            f"{ms:.4f} ms a call vs plain {plain_ms:.4f} ms; graph "
+            f"{'not measured (a log call allocates its outputs anew, so its pointer table is uploaded in the call)' if g_ms is None else f'{g_ms:.5f} ms'}; "
+            f"library none; bound {b_ms:.6f} ms ({b_by})")
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         graph_ms=g_ms, shape=f"{layout} {M}x{acks.shape[1]}"))
+    out["sharded_replay_tally"] = rows[0]
+    return out
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -3148,6 +3514,14 @@ SOURCES = {
                     "swarmkit_tpu/ops/alloc.py:45"),
     "replica_slot_state": ("swarmkit_tpu_torch/csrc/replica_slot_state.cu",
                            "swarmkit_tpu/ops/reconcile.py:202"),
+    "sharded_water_fill_step": (
+        "swarmkit_tpu_torch/csrc/sharded_water_fill.cu",
+        "swarmkit_tpu/parallel/mesh.py:276"),
+    "sharded_binpack_fill_step": (
+        "swarmkit_tpu_torch/csrc/sharded_binpack_fill.cu",
+        "swarmkit_tpu/parallel/mesh.py:276"),
+    "sharded_replay_tally": ("swarmkit_tpu_torch/csrc/sharded_replay_tally.cu",
+                             "swarmkit_tpu/ops/raft_replay.py:46"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
@@ -3165,7 +3539,9 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
                        "global_diff_churn_burst", "global_diff",
                        "diff_compact"),
          "alloc": ("grant_order",),
-         "replicated": ("replica_slot_state",)}
+         "replicated": ("replica_slot_state",),
+         "mesh": ("static_mask", "sharded_water_fill_step",
+                  "sharded_binpack_fill_step", "sharded_replay_tally")}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -3195,6 +3571,7 @@ def main() -> int:
         from swarmkit_tpu_torch.ops import raft_replay as rr
         from swarmkit_tpu_torch.ops import reconcile as rc
         from swarmkit_tpu_torch.ops import resident as rs
+        from swarmkit_tpu_torch.parallel import fill as mf
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
     phase_build()
@@ -3218,7 +3595,10 @@ def main() -> int:
                 "task_count_flat": rc.task_count_flat,
                 "global_diff_churn_burst": rc.global_diff_churn_burst,
                 "grant_order": ga.grant_order_launch,
-                "replica_slot_state": rc.replica_slot_state}
+                "replica_slot_state": rc.replica_slot_state,
+                "sharded_water_fill_step": mf.sharded_water_fill_step,
+                "sharded_binpack_fill_step": mf.sharded_binpack_fill_step,
+                "sharded_replay_tally": rr.sharded_replay_tally}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
@@ -3267,6 +3647,10 @@ def main() -> int:
              f"{by_path['replicated']['replica_slot_state']} times, not once "
              "for each leader's startup census")
     results.update(check_replicated_kernels(repl_rec))
+    mesh_rec = {}
+    by_path["mesh"] = drive("mesh", wrappers,
+                            lambda: phase_mesh(seed, mesh_rec))
+    results.update(check_mesh_kernels(mesh_rec))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -8,12 +8,15 @@ global orchestrator's reconcile over its own store (`store/`,
 `orchestrator/global_.py` on `ops/reconcile.py`, with the device-resident
 O(churn) diff) and the allocator plane that moves new tasks to PENDING
 (`allocator/`: IPAM, published ports, whole NEW batches through
-`ops/alloc.py` grants, the deallocator) on one NVIDIA H100. Host code (the
-object model, the store, the orchestrator, the allocator, the encoder, the
-CPU oracles) is numpy/Python, as in the JAX package, with the commit walk
-and the deep copy in C (`native/`); the device work is eighteen CUDA C++
-kernels for sm_90a under `csrc/` (K1-K17 and K19), each with its plain
-PyTorch version beside its wrapper in `ops/`.
+`ops/alloc.py` grants, the deallocator), the replicated orchestrator's
+reconcile (`orchestrator/replicated.py`, `orchestrator/batched.py`) and the
+one-shot mesh path as a k-way node split of the card (`parallel/`) on one
+NVIDIA H100. Host code (the object model, the store, the orchestrators,
+the allocator, the encoder, the CPU oracles) is numpy/Python, as in the JAX
+package, with the commit walk and the deep copy in C (`native/`); the
+device work is twenty-two CUDA C++ kernels for sm_90a under `csrc/`
+(K1-K22), each with its plain PyTorch version beside its wrapper in `ops/`
+or `parallel/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no device given and no CUDA device present they raise. A kernel wrapper

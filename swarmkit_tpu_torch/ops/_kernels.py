@@ -91,10 +91,23 @@ ENTRIES = {
     "replica_slot_state": {
         "skt_replica_slot_state": [_P] * 8 + [_I] * 3 + [_P],
     },
+    "sharded_water_fill": {
+        "skt_sharded_water_fill_step": [_P] * 12 + [_I] * 7 + [_P],
+        "skt_sharded_water_fill_scratch": [_I],
+        "skt_sharded_water_fill_max_shards": [],
+    },
+    "sharded_binpack_fill": {
+        "skt_sharded_binpack_fill_step": [_P] * 10 + [_I] * 5 + [_P],
+        "skt_sharded_binpack_fill_max_shards": [],
+    },
+    "sharded_replay_tally": {
+        "skt_sharded_replay_tally": [_P] * 6 + [_I] * 4 + [_P],
+    },
 }
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_tables: dict = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -199,3 +212,21 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pointer_table(ptrs, device):
+    """A device table int64[...] of raw pointers (the sharded kernels'
+    per-shard rows), on `device`. A launch loop passes the same tensors
+    step after step, so the last few tables are kept by their pointers:
+    each is uploaded once, and a call that finds its table kept copies
+    nothing (so it can be captured in a CUDA graph)."""
+    import torch
+
+    key = (str(device), tuple(map(tuple, ptrs)))
+    table = _tables.get(key)
+    if table is None:
+        if len(_tables) >= 8:
+            _tables.clear()
+        table = torch.tensor(ptrs, dtype=torch.int64).to(device)
+        _tables[key] = table
+    return table

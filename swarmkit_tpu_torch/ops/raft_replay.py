@@ -18,12 +18,15 @@ any other device raises. Results are int32, as in the reference.
     launch; `frontier_advance` is the burst with B = 1;
   * `match_index_commit` (K12, csrc/match_index_commit.cu): the
     leader-side rule, the quorum-th largest match index;
-  * `replay_log_scan` (K13, csrc/replay_log_scan.cu): the streaming tally.
-
-The sharded tally (`sharded_replay_commit`) waits for the multi-GPU slice.
+  * `replay_log_scan` (K13, csrc/replay_log_scan.cu): the streaming tally;
+  * `sharded_replay_tally` (K22, csrc/sharded_replay_tally.cu): the tally
+    over an ack matrix split into k shards on one card, managers split
+    (under `sharded_replay_commit`) or log split (under the mesh's fused
+    step, `parallel/mesh.py` `sharded_cluster_step`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -230,3 +233,125 @@ def replay_log_scan(acks, quorum, chunk: int = 65536):
 
 
 replay_log_scan.launches = 0
+
+
+# ------------------------------------------------- K22 sharded tally
+_LAYOUTS = {"managers": 0, "log": 1}
+
+
+def _shard_holes(shards, q):
+    """Each log shard's first entry short of quorum (its width if none)."""
+    out = []
+    for a in shards:
+        short = torch.nonzero(a.to(torch.int32).sum(dim=0, dtype=torch.int32)
+                              < q)
+        out.append(int(short[0, 0]) if short.numel() else a.shape[1])
+    return out
+
+
+def sharded_replay_tally_plain(shards, quorum, layout: str = "managers"):
+    """Plain PyTorch sharded tally. managers: (commit int32 scalar,
+    committed bool[E]) from the shards' partial tallies summed in shard
+    order; log: (commit, the shards' committed bool[Eb] each), the commit
+    the least of b * Eb + shard b's first hole, k * Eb when no shard has
+    one."""
+    q = torch.as_tensor(quorum, dtype=torch.int32)
+    dev = shards[0].device
+    if layout == "managers":
+        tally = shards[0].to(torch.int32).sum(dim=0, dtype=torch.int32)
+        for a in shards[1:]:
+            tally = tally + a.to(torch.int32).sum(dim=0, dtype=torch.int32)
+        prefix = torch.cumprod((tally >= q).to(torch.int32), dim=0)
+        return prefix.sum(dtype=torch.int32), prefix.to(torch.bool)
+    Eb = shards[0].shape[1]
+    commit = len(shards) * Eb
+    for b, hole in enumerate(_shard_holes(shards, q)):
+        if hole < Eb:
+            commit = min(commit, b * Eb + hole)
+    entry = torch.arange(Eb, dtype=torch.int64, device=dev)
+    return (torch.tensor(commit, dtype=torch.int32, device=dev),
+            [b * Eb + entry < commit for b in range(len(shards))])
+
+
+def _check_shards(shards) -> tuple[int, int]:
+    shapes = {tuple(a.shape) for a in shards}
+    if len(shapes) != 1:
+        raise ValueError(f"shards of different shapes: {sorted(shapes)}")
+    for a in shards:
+        _check_acks(a)
+    Mb, Eb = shards[0].shape
+    if len(shards) * max(Mb, Eb) >= 1 << 31:
+        raise ValueError(f"{len(shards)} shards of {Mb} x {Eb}: the index "
+                         "is int32")
+    return Mb, Eb
+
+
+def sharded_replay_tally(shards, quorum, layout: str = "managers"):
+    """The quorum tally and commit index of an ack matrix split into k
+    shards (bool tensors on one device). layout "managers": shard b holds
+    M/k manager rows of all E entries; returns (commit int32 scalar,
+    committed bool[E]). layout "log": shard b holds every manager's
+    entries [b * Eb, (b + 1) * Eb); returns (commit, committed bool[Eb]
+    per shard). The plain version for CPU shards, kernel K22
+    (csrc/sharded_replay_tally.cu, three launches) for CUDA shards; shards
+    on two devices raise."""
+    shards = list(shards)
+    if layout not in _LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}: 'managers' or 'log'")
+    if not shards:
+        raise ValueError("no shards")
+    if _kernels.route("sharded replay", *shards) == "plain":
+        return sharded_replay_tally_plain(shards, quorum, layout)
+    Mb, Eb = _check_shards(shards)
+    k = len(shards)
+    dev = shards[0].device
+    q = _quorum(quorum, dev)
+    commit = torch.full((1,), Eb if layout == "managers" else k * Eb,
+                        dtype=torch.int32, device=dev)
+    if layout == "managers":
+        committed = torch.empty(Eb, dtype=torch.bool, device=dev)
+        outs = []
+    else:
+        committed = [torch.empty(Eb, dtype=torch.bool, device=dev)
+                     for _ in range(k)]
+        outs = committed
+    if Eb == 0:
+        return commit[0], committed
+    table = _kernels.pointer_table(
+        [[a.data_ptr() for a in shards] + [o.data_ptr() for o in outs]], dev)
+    partial = torch.empty(k * Eb, dtype=torch.int32, device=dev)
+    hole = torch.full((k,), Eb, dtype=torch.int32, device=dev)
+    rc = _kernels.lib("sharded_replay_tally").skt_sharded_replay_tally(
+        table.data_ptr(), q.data_ptr(), partial.data_ptr(), hole.data_ptr(),
+        commit.data_ptr(),
+        committed.data_ptr() if layout == "managers" else None,
+        _LAYOUTS[layout], k, Mb, Eb, _kernels.stream_of(q))
+    _kernels.check(rc, "sharded_replay_tally")
+    sharded_replay_tally.launches += 1
+    return commit[0], committed
+
+
+sharded_replay_tally.launches = 0
+
+
+def sharded_replay_commit(mesh, axis: str = "managers"):
+    """The replay with each of the mesh's k shards holding M/k managers'
+    ack rows: returns fn(acks, quorum) -> (commit int32 scalar, committed
+    bool[E]), the shards' partial tallies summed across shards (K22,
+    managers split). `acks`: bool[M, E], numpy or a tensor; M not
+    divisible by k raises. The mesh's axis must be `axis`."""
+    if mesh.axis != axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+
+    def fn(acks, quorum):
+        a = acks if isinstance(acks, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(acks))
+        M = a.shape[0]
+        if M % mesh.size:
+            raise ValueError(f"{M} managers do not split into {mesh.size} "
+                             "equal shards")
+        shards = [s.contiguous().to(mesh.device)
+                  for s in torch.split(a, M // mesh.size)]
+        return sharded_replay_tally(shards, quorum, layout="managers")
+
+    return fn
