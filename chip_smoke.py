@@ -4,7 +4,7 @@ Drives the port's main paths on one CUDA card and fails (exit code != 0, no
 result line) if any phase fails:
 
   1. device   — the card's name, count and power limit;
-  2. build    — nvcc builds the 22 kernels from csrc/, all at once, and
+  2. build    — nvcc builds the 24 kernels from csrc/, all at once, and
                 cc the native commit walk (native/_hostops.c); the run
                 fails unless the native module loaded;
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
@@ -157,10 +157,25 @@ result line) if any phase fails:
                 the shapes, then again); then K20-K22 against their plain
                 versions on the scale-out inputs (CUDA events and a CUDA
                 graph).
+ 17. mesh_resident — the resident tick with its carry node-sharded over 8
+                shards of the card (MeshResidentPlacement under
+                TickPipeline): phase 8's grid (10,000 nodes, 20 x 5,000
+                tasks a wave, dense pulls) and node-heavy (100,000 nodes in
+                8 shards of 16,384, 20 x 500 tasks a wave, sparse pulls)
+                runs, each with the async and then the synchronous commit:
+                a cold tick and 8 pipelined waves, task completions on 32
+                nodes before wave 7 (K23 delta rows), invalidate() before
+                wave 8 (a cold re-upload, K8 a shard). Every wave's counts,
+                the NodeInfos after the flush and the joined carry equal
+                the one-device tick's run of phase 8; both pull forms of
+                K24 are taken; then K23 and K24 against their plain
+                versions on the phase's recorded inputs (CUDA events and a
+                CUDA graph; torch.cat + cast and torch.nonzero_static +
+                gather as K24's library times).
 
-Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14, 15 and
-16) runs with every launch count set to 0 just before it, and fails unless
-each of its kernels launched.
+Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14, 15, 16
+and 17) runs with every launch count set to 0 just before it, and fails
+unless each of its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
 line of its output is {"ok": true, "device": {...}}.
@@ -795,7 +810,7 @@ def finish_tasks(enc, infos, n_nodes):
 
 def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
                invalidate_at, depth=3, async_commit=True, strategy="spread",
-               record=True):
+               record=True, mesh=None, against=None):
     """A cold tick (ResidentPlacement.schedule, full upload), then n_waves
     steady waves through TickPipeline(depth, async_commit), then a flush,
     on a tracked encoder (the zero-scan steady path the scheduler takes).
@@ -804,8 +819,11 @@ def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
     so they come after the steady stretch. Every completed wave is checked
     after the flush, outside the timed stretch (the carry taps wait in
     pinned memory). The recorder keeps the first steady wave's placement
-    inputs under this configuration's name when `record`. Returns the
-    resident object and each wave's counts."""
+    inputs under this configuration's name when `record`. With `mesh` the
+    tick is MeshResidentPlacement on that mesh, and each wave's counts are
+    held against `against` (the one-device run's) instead of the oracle
+    and the carry taps. Returns the resident object and each wave's
+    counts."""
     from swarmkit_tpu_torch.ops.pipeline import TickPipeline
     from swarmkit_tpu_torch.scheduler import batch
     from swarmkit_tpu_torch.scheduler.encode import IncrementalEncoder
@@ -830,7 +848,14 @@ def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
                                f"{int(counts.sum())} placements")
 
     enc = IncrementalEncoder(tracked=True, strategy=strategy)
-    rp = tapped_resident(enc)
+    if mesh is None:
+        rp = tapped_resident(enc)
+    else:
+        from swarmkit_tpu_torch.ops.resident_mesh import (
+            MeshResidentPlacement,
+        )
+
+        rp = MeshResidentPlacement(enc, mesh)
     t0 = time.perf_counter()
     p = enc.encode(infos, waves[0])
     t1 = time.perf_counter()
@@ -890,14 +915,27 @@ def steady_run(name, rec, infos, make_groups, n_waves, churn_at,
             f"spent {sum(t['barrier_s'] for t in pipe.timings):.4f} s in "
             f"barriers")
     t0 = time.perf_counter()
-    placed = [check_wave(name, k, rp, p, c) for k, (p, c) in enumerate(done)]
+    if against is None:
+        placed = [check_wave(name, k, rp, p, c)
+                  for k, (p, c) in enumerate(done)]
+        checked = ("every wave equal to the CPU oracle and every carry "
+                   "equal to the expected fold")
+        if rp.taps:
+            fail(f"[steady] {name}: {len(rp.taps)} carry taps unchecked")
+    else:
+        placed = [int(c.sum()) for _p, c in done]
+        if len(done) != len(against) or any(
+                not np.array_equal(c, w) for (_p, c), w in zip(done,
+                                                               against)):
+            fail(f"[steady] {name}: counts differ from the one-device "
+                 "tick's on the same waves")
+        checked = "every wave equal to the one-device tick's"
     t_check = time.perf_counter() - t0
-    if len(placed) != n_waves + 1 or rp.taps:
+    if len(placed) != n_waves + 1:
         fail(f"[steady] {name}: {len(placed)} waves completed of "
              f"{n_waves + 1}")
     log(f"[steady] {name}: {sum(placed)} tasks placed in {n_waves + 1} "
-        f"waves {placed}, every wave equal to the CPU oracle and every "
-        f"carry equal to the expected fold (checked in {t_check:.1f} s); "
+        f"waves {placed}, {checked} (checked in {t_check:.1f} s); "
         f"{t_end - t_start:.3f} s for the {n_waves} pipelined waves and the "
         f"flush (host clock, synchronised); uploads: full "
         f"{rp.uploads_full} {rp.uploads_svc}, delta rows "
@@ -962,12 +1000,14 @@ def flagship_ticks(seed, n_ticks, rec):
     return rp
 
 
-def phase_steady(seed, recorder):
+def phase_steady(seed, recorder, ref):
     """The resident steady tick at full width: grid with the async and then
     the synchronous commit (dense pulls), the two runs equal wave for wave
     and NodeInfo for NodeInfo; grid under binpack (K9); node-heavy (sparse
     pulls); flagship tree. Only each run's upload and pull counters are
-    kept."""
+    kept, and in `ref` the async grid and node-heavy runs' counts,
+    NodeInfos after the flush and final carry ([mesh_resident] holds the
+    mesh tick against them)."""
     seen = {}
 
     def keep(name, rp):
@@ -985,6 +1025,8 @@ def phase_steady(seed, recorder):
             async_commit=mode == "async", record=k == 0)
         keep(name, rp)
         run = (counts, [info_state(i) for i in infos])
+        if first is None:
+            ref["grid"] = (*run, rp.pull_state())
         del rp, infos
         if first is None:
             first = run
@@ -1006,9 +1048,13 @@ def phase_steady(seed, recorder):
             ("node-heavy", grid_nodes(random.Random(seed + 2), HEAVY_NODES),
              lambda w: grid_groups(200 + w, N_GROUPS, HEAVY_PER_SERVICE),
              "spread")):
-        rp, _ = steady_run(name, recorder, nodes, groups, STEADY_WAVES,
-                           churn_at=7, invalidate_at=8, strategy=strategy)
+        rp, counts = steady_run(name, recorder, nodes, groups, STEADY_WAVES,
+                                churn_at=7, invalidate_at=8,
+                                strategy=strategy)
         keep(name, rp)
+        if name == "node-heavy":
+            ref[name] = (counts, [info_state(i) for i in nodes],
+                         rp.pull_state())
         del rp, nodes
     keep("flagship tree", flagship_ticks(seed, FLAGSHIP_TICKS, recorder))
     recorder.active = False
@@ -3474,6 +3520,160 @@ def check_mesh_kernels(rec):
     return out
 
 
+# ------------------------------------------------- the mesh resident tick
+def phase_mesh_resident(seed, rec, ref):
+    """The resident tick with its carry node-sharded over MESH_SHARDS
+    shards of the card (MeshResidentPlacement under TickPipeline): phase
+    8's grid and node-heavy runs (a cold tick, 8 pipelined waves, task
+    completions before wave 7, invalidate() before wave 8), each with the
+    async and then the synchronous commit. Every wave's counts, the
+    NodeInfos after the flush and the joined carry equal the one-device
+    tick's async run of phase 8 (`ref`); both pull forms are taken."""
+    from swarmkit_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    m = make_mesh(MESH_SHARDS)
+    pulls = {"dense": 0, "sparse": 0}
+    rec.active = True
+    for name, n_nodes, node_seed, per_service, wave0 in (
+            ("grid", N_NODES, seed + 1, TASKS_PER_GROUP, 100),
+            ("node-heavy", HEAVY_NODES, seed + 2, HEAVY_PER_SERVICE, 200)):
+        want_counts, want_infos, want_carry = ref[name]
+        for mode in ("async", "sync"):
+            infos = grid_nodes(random.Random(node_seed), n_nodes)
+            run = f"{name} mesh {mode}"
+            rp, _ = steady_run(
+                run, rec, infos,
+                lambda w, wave0=wave0, per=per_service: grid_groups(
+                    wave0 + w, N_GROUPS, per),
+                STEADY_WAVES, churn_at=7, invalidate_at=8,
+                async_commit=mode == "async", record=False, mesh=m,
+                against=want_counts)
+            if [info_state(i) for i in infos] != want_infos:
+                fail(f"[mesh_resident] {run}: NodeInfos after the flush "
+                     "differ from the one-device tick's")
+            st = rp.pull_state()
+            bad = [f for f in want_carry
+                   if st[f].shape != want_carry[f].shape
+                   or not np.array_equal(st[f], want_carry[f])]
+            if bad:
+                fail(f"[mesh_resident] {run}: joined carry differs from the "
+                     f"one-device tick's in {bad}")
+            widths = {tuple(t.shape) for t in rp._state[0]}
+            for k in pulls:
+                pulls[k] += rp.pulls[k]
+            log(f"[mesh_resident] {run}: counts equal to the one-device "
+                f"tick's wave for wave, {len(want_infos)} NodeInfos and the "
+                f"joined carry equal after the flush; {MESH_SHARDS} shards "
+                f"of {sorted(widths)} nodes; pulls {rp.pulls}, uploads "
+                f"{rp.uploads_svc}, delta rows {rp.uploads_delta_rows}")
+            del rp, infos
+    rec.active = False
+    if not all(pulls.values()):
+        fail(f"[mesh_resident] a pull form was not taken: {pulls}")
+    log(f"[mesh_resident] pulls {pulls}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def check_mesh_resident_kernels(rec):
+    """K23 and K24 against their plain versions on the inputs recorded in
+    [mesh_resident] (the grid's churn tick; a grid tick's dense pull and a
+    node-heavy tick's sparse pull); times by CUDA events and from a CUDA
+    graph."""
+    from swarmkit_tpu_torch.ops import resident_mesh as rm
+
+    out = {}
+    missing = [k for k in ("sharded_delta_scatter",
+                           "sharded_counts_pull dense",
+                           "sharded_counts_pull sparse")
+               if k not in rec.calls]
+    if missing:
+        fail(f"[mesh_resident] no call recorded: {missing}")
+    # K23: the recorded carry and rows; a pointer table of the copies
+    state, deltas, _table = rec.calls["sharded_delta_scatter"]
+    got = _clone(state)
+    want = _clone(state)
+    table = rm.scatter_table(got)
+    rm.sharded_delta_scatter.real(got, deltas, table)
+    rm.sharded_delta_scatter_plain(want, deltas)
+    err = max(int((a.int() - b.int()).abs().max()) if a.numel() else 0
+              for fa, fb in zip(got, want) for a, b in zip(fa, fb))
+    if err:
+        fail(f"sharded_delta_scatter differs from its plain version ({err})")
+    ms, plain_ms = _time_pair(
+        lambda: rm.sharded_delta_scatter.real(got, deltas, table),
+        lambda: rm.sharded_delta_scatter_plain(want, deltas))
+    g_ms = graph_ms(lambda: rm.sharded_delta_scatter.real(got, deltas,
+                                                           table))
+    D, k = deltas[0].shape[0], len(state[0])
+    row = sum(d[:1].numel() * d.element_size() for d in deltas[1:8]) \
+        + deltas[8].shape[0] * 4
+    b_ms, b_by = bound(D * (4 + 2 * row), 0)
+    n = state[0][0].shape[0]
+    log(f"[kernels] sharded_delta_scatter (D={D} into {k} x {n}): equal to "
+        f"plain; {ms:.4f} ms, graph {g_ms:.5f} ms vs plain {plain_ms:.4f} "
+        f"ms; library none; bound {b_ms:.6f} ms ({b_by})")
+    out["sharded_delta_scatter"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, graph_ms=g_ms,
+        shape=f"D={D}, {k}x{n}")
+
+    # K24: the dense and the sparse form
+    rows = {}
+    for form in ("dense", "sparse"):
+        args = rec.calls[f"sharded_counts_pull {form}"]
+        counts, g, n, compact = args[:4]
+        kk = args[4] if form == "sparse" else None
+        got = rm.sharded_counts_pull.real(*args)
+        want = rm.sharded_counts_pull_plain(*args)
+        pairs = [(got, want)] if kk is None else list(zip(got, want))
+        err = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
+        if err or any(a.dtype != b.dtype for a, b in pairs):
+            fail(f"sharded_counts_pull ({form}) differs from its plain "
+                 "version")
+        ms, plain_ms = _time_pair(
+            lambda: rm.sharded_counts_pull.real(*args),
+            lambda: rm.sharded_counts_pull_plain(*args), 200)
+        g_ms = graph_ms(lambda: rm.sharded_counts_pull.real(*args))
+        dt = torch.int16 if compact else torch.int32
+        vb = 2 if compact else 4
+        if kk is None:
+            def library():
+                return torch.cat(counts, 1)[:g, :n].to(dt)
+            b_ms, b_by = bound(g * n * (4 + vb), 0)
+        else:
+            joined = torch.cat(counts, 1).contiguous()
+
+            def library():
+                flat = joined[:g, :n].reshape(-1)
+                nz = torch.nonzero_static(flat, size=kk,
+                                          fill_value=0).reshape(-1)
+                return nz, flat[nz]
+            b_ms, b_by = bound(g * n * 4 + kk * (4 + vb), g * n)
+        lib = library()
+        same = (torch.equal(lib.int(), got.int()) if kk is None else
+                torch.equal(lib[0].int(), got[0])
+                and torch.equal(lib[1].int(), got[1].int()))
+        if not same:
+            fail(f"the library call does not compute sharded_counts_pull "
+                 f"({form})")
+        lib_ms = time_ms(library, 200)
+        shape = (f"{g}x{n} of {len(counts)} x {tuple(counts[0].shape)}, "
+                 f"{dt}" + ("" if kk is None else f", kk={kk}"))
+        log(f"[kernels] sharded_counts_pull {form} ({shape}): equal to "
+            f"plain; {ms:.4f} ms, graph {g_ms:.5f} ms vs plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms; bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        rows[form] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          graph_ms=g_ms, shape=shape)
+    out["sharded_counts_pull"] = dict(rows["dense"], sparse=rows["sparse"],
+                                      max_abs_err=max(
+                                          r["max_abs_err"]
+                                          for r in rows.values()))
+    return out
+
+
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
@@ -3522,6 +3722,11 @@ SOURCES = {
         "swarmkit_tpu/parallel/mesh.py:276"),
     "sharded_replay_tally": ("swarmkit_tpu_torch/csrc/sharded_replay_tally.cu",
                              "swarmkit_tpu/ops/raft_replay.py:46"),
+    "sharded_delta_scatter": (
+        "swarmkit_tpu_torch/csrc/sharded_delta_scatter.cu",
+        "swarmkit_tpu/ops/resident.py:126"),
+    "sharded_counts_pull": ("swarmkit_tpu_torch/csrc/sharded_counts_pull.cu",
+                            "swarmkit_tpu/ops/resident.py:162"),
 }
 # the kernels each main path must launch
 PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
@@ -3541,7 +3746,10 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
          "alloc": ("grant_order",),
          "replicated": ("replica_slot_state",),
          "mesh": ("static_mask", "sharded_water_fill_step",
-                  "sharded_binpack_fill_step", "sharded_replay_tally")}
+                  "sharded_binpack_fill_step", "sharded_replay_tally"),
+         "mesh_resident": ("static_mask", "sharded_water_fill_step",
+                           "svc_matrix_build", "sharded_delta_scatter",
+                           "sharded_counts_pull")}
 
 
 def drive(path, wrappers, run) -> dict:
@@ -3571,6 +3779,7 @@ def main() -> int:
         from swarmkit_tpu_torch.ops import raft_replay as rr
         from swarmkit_tpu_torch.ops import reconcile as rc
         from swarmkit_tpu_torch.ops import resident as rs
+        from swarmkit_tpu_torch.ops import resident_mesh as rm
         from swarmkit_tpu_torch.parallel import fill as mf
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
@@ -3598,7 +3807,9 @@ def main() -> int:
                 "replica_slot_state": rc.replica_slot_state,
                 "sharded_water_fill_step": mf.sharded_water_fill_step,
                 "sharded_binpack_fill_step": mf.sharded_binpack_fill_step,
-                "sharded_replay_tally": rr.sharded_replay_tally}
+                "sharded_replay_tally": rr.sharded_replay_tally,
+                "sharded_delta_scatter": rm.sharded_delta_scatter,
+                "sharded_counts_pull": rm.sharded_counts_pull}
     by_path = {"waves+flagship": drive(
         "waves+flagship", wrappers,
         lambda: (phase_waves(seed), phase_flagship(seed, flag_p)))}
@@ -3617,8 +3828,9 @@ def main() -> int:
     rec.wrap(rs, "svc_matrix_build",
              key=lambda a: "svc_matrix_build" + (" zeros" if a[0].numel()
                                                  == 0 else ""))
+    steady_ref = {}
     by_path["steady"] = drive("steady", wrappers,
-                              lambda: phase_steady(seed, rec))
+                              lambda: phase_steady(seed, rec, steady_ref))
     check_steady_placement(rec)
     results.update(check_resident_kernels(rec))
     replay_rec = {}
@@ -3651,6 +3863,15 @@ def main() -> int:
     by_path["mesh"] = drive("mesh", wrappers,
                             lambda: phase_mesh(seed, mesh_rec))
     results.update(check_mesh_kernels(mesh_rec))
+    mesh_res_rec = Recorder()
+    mesh_res_rec.wrap(rm, "sharded_delta_scatter")
+    mesh_res_rec.wrap(rm, "sharded_counts_pull", key=lambda a: (
+        "sharded_counts_pull " + ("dense" if len(a) == 4 else "sparse")))
+    by_path["mesh_resident"] = drive(
+        "mesh_resident", wrappers,
+        lambda: phase_mesh_resident(seed, mesh_res_rec, steady_ref))
+    del steady_ref
+    results.update(check_mesh_resident_kernels(mesh_res_rec))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -3662,7 +3883,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), graph_ms=r.get("graph_ms"),
-            equal_to_plain=r["max_abs_err"] == 0))
+            equal_to_plain=r["max_abs_err"] == 0,
+            **({"sparse": r["sparse"]} if "sparse" in r else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

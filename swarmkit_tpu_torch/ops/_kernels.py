@@ -103,6 +103,13 @@ ENTRIES = {
     "sharded_replay_tally": {
         "skt_sharded_replay_tally": [_P] * 6 + [_I] * 4 + [_P],
     },
+    "sharded_delta_scatter": {
+        "skt_sharded_delta_scatter": [_P] * 10 + [_I] * 8 + [_P],
+    },
+    "sharded_counts_pull": {
+        "skt_sharded_counts_dense": [_P] * 2 + [_I] * 5 + [_P],
+        "skt_sharded_counts_sparse": [_P] * 4 + [_I] * 6 + [_P],
+    },
 }
 
 _lock = threading.Lock()

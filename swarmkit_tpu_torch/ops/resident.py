@@ -40,8 +40,8 @@ version beside its wrapper; the plain version runs for CPU tensors only):
                                     upload, from zeros or a sparse
                                     scatter-add.
 
-Node-axis sharding over several cards (the JAX package's `mesh=`) is not
-ported yet.
+The JAX package's `mesh=` mode, the carry sharded on the node axis, is
+`ops/resident_mesh.py` `MeshResidentPlacement`.
 """
 from __future__ import annotations
 

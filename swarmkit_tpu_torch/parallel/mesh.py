@@ -12,9 +12,10 @@ cross-shard exchange is written out by hand, in the sharded kernels K20-K22
 Exchange between cards waits for more than one GPU: shards on two devices
 raise.
 
-Not ported: `mesh_context` (PyTorch has no ambient mesh), and the resident
+Not ported: `mesh_context` (PyTorch has no ambient mesh). The resident
 tick's shardings (`RESIDENT_STATE_SPECS`, `resident_shardings`,
-`node_axis_sharding`), which come with the mesh mode of `ResidentPlacement`.
+`node_axis_sharding`) are `ops/resident_mesh.py`'s `MESH_STATE_AXES` and
+`GROUP_NODE_AXES`, with its `MeshResidentPlacement`.
 """
 from __future__ import annotations
 
