@@ -45,7 +45,8 @@ result line) if any phase fails:
                 4, the group tables as row views), and K5-K8 on inputs
                 recorded from phase 8; times by CUDA events, and for K5-K8
                 also the device time alone (their calls replayed from a
-                CUDA graph).
+                CUDA graph); K6 in turns with its library call (the slice
+                and cast).
  10. replay   — the raft replay burst at bench.py's shape (5 managers x
                 1,000,000 entries, bench.py:580-660): the cold bit-packed
                 upload unpacked on the card (K10), replay_commit (K4), 4
@@ -54,7 +55,9 @@ result line) if any phase fails:
                 round's frontiers, and the streaming replay_log_scan (K13,
                 chunk 65,536) on that matrix and on the flagship's 5 x 2^20
                 log: every commit, and the final matrix, equal to numpy;
-                then K10-K13 against their plain versions on those inputs;
+                then K10-K13 against their plain versions on those inputs
+                (K12 with its quorum an int and a CUDA tensor, in turns
+                with torch.kthvalue, and from a CUDA graph);
  11. int32    — two ticks past the old N * max(n_tasks) >= 2^31 guard whose
                 capacity sums stay far below 2^31 (the steps now flag a
                 group only when its sum reaches 2^31): a resident tick at
@@ -1124,6 +1127,47 @@ def _time_pair(kernel, plain, iters=50):
     return time_ms(kernel, iters), time_ms(plain, max(5, iters // 10))
 
 
+def time_turns(kernel, library, iters=300, rounds=10):
+    """A kernel's wrapper against the one PyTorch call that computes the
+    same function, host-issued ms per call (`time_ms`), timed in turns
+    (kernel, library, kernel, library, ...) in this process: (mean kernel
+    ms, mean library ms, [[kernel ms, library ms] of each turn])."""
+    turns = [[time_ms(kernel, iters), time_ms(library, iters)]
+             for _ in range(rounds)]
+    return (sum(k for k, _ in turns) / rounds,
+            sum(lb for _, lb in turns) / rounds, turns)
+
+
+def _turns_text(turns):
+    return ", ".join(f"{k:.4f} / {lb:.4f}" for k, lb in turns)
+
+
+def _ns_turns_text(turns):
+    return ", ".join(f"{k:.0f} / {lb:.0f}" for k, lb in turns)
+
+
+def host_ns(fn, calls=3000):
+    """Host ns per call of fn: perf_counter over `calls` back-to-back calls
+    after 200 warm-up ones, the card synchronised before and after."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls
+
+
+def host_turns(kernel, library, rounds=10):
+    """`host_ns` of a kernel's wrapper against its library call, in turns
+    as `time_turns`: (mean kernel ns, mean library ns, [[kernel ns,
+    library ns] of each turn])."""
+    turns = [[host_ns(kernel), host_ns(library)] for _ in range(rounds)]
+    return (sum(k for k, _ in turns) / rounds,
+            sum(lb for _, lb in turns) / rounds, turns)
+
+
 def graph_ms(fn, iters=20, reps=10) -> float:
     """Mean device ms per call of fn: `iters` calls captured in one CUDA
     graph and replayed, so the host cost of a call (argument checks,
@@ -1243,18 +1287,29 @@ def check_resident_kernels(rec):
     err = int((got.int() - want.int()).abs().max())
     if err or got.dtype != want.dtype:
         fail("counts_window differs from its plain version")
-    ms, plain_ms = _time_pair(
+    vector = rs.window_vector(counts.data_ptr(), got.data_ptr(), n,
+                              counts.shape[1])
+    ms, lib_ms, turns = time_turns(
         lambda: rs.counts_window.real(counts, g, n, compact),
-        lambda: rs.counts_window_plain(counts, g, n, compact), 200)
-    lib_ms = time_ms(lambda: counts[:g, :n].to(
-        torch.int16 if compact else torch.int32).contiguous(), 200)
+        lambda: counts[:g, :n].to(
+            torch.int16 if compact else torch.int32).contiguous())
+    plain_ms = time_ms(lambda: rs.counts_window_plain(counts, g, n, compact),
+                       20)
+    ns, lib_ns, ns_turns = host_turns(
+        lambda: rs.counts_window.real(counts, g, n, compact),
+        lambda: counts[:g, :n].to(got.dtype).contiguous())
     b_ms, b_by = bound(g * n * (4 + (2 if compact else 4)), 0)
     log(f"[kernels] counts_window ({g}x{n} of {tuple(counts.shape)}, "
-        f"{got.dtype}): equal to plain; {ms:.4f} ms vs plain {plain_ms:.4f} "
-        f"ms, library {lib_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+        f"{got.dtype}, {'vector' if vector else 'scalar'} path): equal to "
+        f"plain; {ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms (in turns, kernel / library: "
+        f"{_turns_text(turns)}); host ns a call {ns:.0f} vs library "
+        f"{lib_ns:.0f} (in turns: {_ns_turns_text(ns_turns)}); bound "
+        f"{b_ms:.6f} ms ({b_by})")
     out["counts_window"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms,
+        bound_by=b_by, library_ms=lib_ms, turns_ms=turns, host_ns=ns,
+        library_host_ns=lib_ns, host_ns_turns=ns_turns,
         shape=f"{g}x{n} of {tuple(counts.shape)}")
 
     # K7: a node-heavy tick's sparse pull
@@ -1496,18 +1551,40 @@ def check_replay_kernels(rec):
 
     mi, q = rec["match_index_commit"]
     M = mi.shape[0]
-    err = abs(int(rr.match_index_commit(mi, q))
-              - int(rr.match_index_commit_plain(mi, q)))
-    record("match_index_commit", err,
-           lambda: rr.match_index_commit(mi, q),
-           lambda: rr.match_index_commit_plain(mi, q), 4 * M + 8,
-           3 * M * M,
-           lib=lambda: torch.kthvalue(mi, M - q + 1).values,
-           shape=f"M={M}, quorum {q}")
-    if int(torch.kthvalue(mi, M - q + 1).values) \
-            != int(rr.match_index_commit(mi, q)):
+    q_dev = torch.tensor(q, dtype=torch.int32, device=mi.device)
+    want = int(rr.match_index_commit_plain(mi, q))
+    err = max(abs(int(rr.match_index_commit(mi, q)) - want),
+              abs(int(rr.match_index_commit(mi, q_dev)) - want))
+    if err:
+        fail(f"match_index_commit differs from its plain version (M={M}, "
+             f"quorum {q}, err {err})")
+    if int(torch.kthvalue(mi, M - q + 1).values) != want:
         fail("torch.kthvalue does not compute match_index_commit's "
              "function")
+    ms, lib_ms, turns = time_turns(
+        lambda: rr.match_index_commit(mi, q),
+        lambda: torch.kthvalue(mi, M - q + 1).values)
+    ms_q_dev = time_ms(lambda: rr.match_index_commit(mi, q_dev), 500)
+    plain_ms = time_ms(lambda: rr.match_index_commit_plain(mi, q), 20)
+    ns, lib_ns, ns_turns = host_turns(
+        lambda: rr.match_index_commit(mi, q),
+        lambda: torch.kthvalue(mi, M - q + 1).values)
+    g_ms = graph_ms(lambda: rr.match_index_commit(mi, q))
+    g_ms_q_dev = graph_ms(lambda: rr.match_index_commit(mi, q_dev))
+    b_ms, b_by = bound(4 * M + 8, 3 * M * M)
+    log(f"[kernels] match_index_commit (M={M}, quorum {q}): equal to plain "
+        f"(quorum an int and a CUDA tensor); {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (in turns, kernel / "
+        f"library: {_turns_text(turns)}); host ns a call {ns:.0f} vs library "
+        f"{lib_ns:.0f} (in turns: {_ns_turns_text(ns_turns)}); quorum a "
+        f"CUDA tensor {ms_q_dev:.4f} ms; graph {g_ms:.5f} ms, quorum a "
+        f"CUDA tensor {g_ms_q_dev:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
+    out["match_index_commit"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, graph_ms=g_ms, turns_ms=turns,
+        ms_quorum_on_card=ms_q_dev, graph_ms_quorum_on_card=g_ms_q_dev,
+        host_ns=ns, library_host_ns=lib_ns, host_ns_turns=ns_turns,
+        shape=f"M={M}, quorum {q}")
 
     for key in ("replay_log_scan bench", "replay_log_scan flagship"):
         a, q, chunk = rec[key]
@@ -3884,7 +3961,10 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), graph_ms=r.get("graph_ms"),
             equal_to_plain=r["max_abs_err"] == 0,
-            **({"sparse": r["sparse"]} if "sparse" in r else {})))
+            **{k: r[k] for k in ("sparse", "turns_ms", "ms_quorum_on_card",
+                                 "graph_ms_quorum_on_card", "host_ns",
+                                 "library_host_ns", "host_ns_turns")
+               if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

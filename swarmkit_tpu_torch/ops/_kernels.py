@@ -48,6 +48,7 @@ ENTRIES = {
     },
     "counts_window": {
         "skt_counts_window": [_P] * 2 + [_I] * 4 + [_P],
+        "skt_counts_window_vec4": [_P] * 2 + [_I] * 4 + [_P],
     },
     "sparse_counts": {
         "skt_sparse_counts": [_P] * 4 + [_I] * 5 + [_P],
@@ -67,6 +68,7 @@ ENTRIES = {
     },
     "match_index_commit": {
         "skt_match_index_commit": [_P] * 3 + [_I, _P],
+        "skt_match_index_commit_at": [_P, _I, _P, _I, _P],
     },
     "replay_log_scan": {
         "skt_replay_log_scan": [_P] * 3 + [_I] * 3 + [_P],
@@ -219,6 +221,15 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raw_stream(t) -> int:
+    """The handle of PyTorch's current stream on t's device, as `stream_of`
+    gives it, read without building a `torch.cuda.Stream` object (the
+    cheaper call, for wrappers whose launch costs less than that object)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def pointer_table(ptrs, device):

@@ -26,6 +26,8 @@ any other device raises. Results are int32, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -158,6 +160,30 @@ def match_index_commit_plain(match_index, quorum):
     return torch.sort(match_index, descending=True).values[i]
 
 
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def host_quorum(quorum):
+    """The quorum of a K12 launch as a Python int, or None for a tensor on
+    the card (which the kernel reads itself). Every host form (an int, a
+    numpy integer, a CPU tensor of one element) converts as
+    `torch.as_tensor(quorum, dtype=torch.int32)` does, and what that refuses
+    (an int outside the int32 range) raises the same way."""
+    if type(quorum) is int and INT32_MIN <= quorum <= INT32_MAX:
+        return quorum
+    if isinstance(quorum, torch.Tensor) and quorum.device.type != "cpu":
+        return None
+    return int(torch.as_tensor(quorum, dtype=torch.int32).reshape(1)[0])
+
+
+@functools.cache
+def _match_index_entries():
+    """K12's C entries, resolved once: (quorum by value, quorum on the
+    card)."""
+    lib = _kernels.lib("match_index_commit")
+    return lib.skt_match_index_commit_at, lib.skt_match_index_commit
+
+
 def match_index_commit(match_index, quorum):
     """Commit index from per-manager match indices int32[M] (the
     leader-side rule: the quorum-th largest). The index follows the
@@ -180,14 +206,18 @@ def match_index_commit(match_index, quorum):
     if _kernels.route("match-index commit", match_index) == "plain":
         return match_index_commit_plain(match_index, quorum)
     mi = match_index.contiguous()
-    q = _quorum(quorum, dev)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
-    rc = _kernels.lib("match_index_commit").skt_match_index_commit(
-        mi.data_ptr(), q.data_ptr(), out.data_ptr(), mi.shape[0],
-        _kernels.stream_of(mi))
+    M = mi.shape[0]
+    out = mi.new_empty(())
+    at, on_card = _match_index_entries()
+    q = host_quorum(quorum)
+    if q is None:       # read by the kernel: the host never waits on it
+        rc = on_card(mi.data_ptr(), _quorum(quorum, dev).data_ptr(),
+                     out.data_ptr(), M, _kernels.raw_stream(mi))
+    else:
+        rc = at(mi.data_ptr(), q, out.data_ptr(), M, _kernels.raw_stream(mi))
     _kernels.check(rc, "match_index_commit")
     match_index_commit.launches += 1
-    return out[0]
+    return out
 
 
 match_index_commit.launches = 0

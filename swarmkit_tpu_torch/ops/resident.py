@@ -45,6 +45,8 @@ The JAX package's `mesh=` mode, the carry sharded on the node axis, is
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -155,6 +157,21 @@ def _check_counts(counts, g: int, n: int) -> None:
                          f"{list(counts.shape)}")
 
 
+def window_vector(src: int, dst: int, n: int, n_pad: int) -> bool:
+    """Whether K6 takes its vector path (4 cells a thread, 16-byte loads)
+    for a window of n columns out of counts rows of n_pad, between the
+    addresses src and dst: only when every row of both arrays starts on a
+    16-byte boundary."""
+    return n % 4 == 0 and n_pad % 4 == 0 and src % 16 == 0 and dst % 16 == 0
+
+
+@functools.cache
+def _counts_window_entries():
+    """K6's C entries, resolved once: (scalar path, vector path)."""
+    lib = _kernels.lib("counts_window")
+    return lib.skt_counts_window, lib.skt_counts_window_vec4
+
+
 def counts_window(counts, g: int, n: int, compact: bool):
     """The real [g, n] window of int32 counts[Gp, Np] as one contiguous
     tensor, int16 when compact: the plain version for CPU tensors, kernel K6
@@ -162,13 +179,14 @@ def counts_window(counts, g: int, n: int, compact: bool):
     if _kernels.route("resident", counts) == "plain":
         return counts_window_plain(counts, g, n, compact)
     _check_counts(counts, g, n)
-    out = torch.empty((g, n), dtype=_counts_dtype(compact),
-                      device=counts.device)
+    out = counts.new_empty((g, n), dtype=_counts_dtype(compact))
     if g * n == 0:
         return out
-    rc = _kernels.lib("counts_window").skt_counts_window(
-        _ptr(counts), _ptr(out), g, n, counts.shape[1], int(compact),
-        _kernels.stream_of(counts))
+    src, dst, n_pad = counts.data_ptr(), out.data_ptr(), counts.shape[1]
+    scalar, vec4 = _counts_window_entries()
+    launch = vec4 if window_vector(src, dst, n, n_pad) else scalar
+    rc = launch(src, dst, g, n, n_pad, int(compact),
+                _kernels.raw_stream(counts))
     _kernels.check(rc, "counts_window")
     counts_window.launches += 1
     return out
