@@ -46,7 +46,9 @@ result line) if any phase fails:
                 recorded from phase 8; times by CUDA events, and for K5-K8
                 also the device time alone (their calls replayed from a
                 CUDA graph); K6 in turns with its library call (the slice
-                and cast).
+                and cast), K8 in turns with its library calls (zeros +
+                scatter_add_ for the sparse build, zeros for the all-zero
+                one), by CUDA events and by the host clock.
  10. replay   — the raft replay burst at bench.py's shape (5 managers x
                 1,000,000 entries, bench.py:580-660): the cold bit-packed
                 upload unpacked on the card (K10), replay_commit (K4), 4
@@ -173,8 +175,11 @@ result line) if any phase fails:
                 the one-device tick's run of phase 8; both pull forms of
                 K24 are taken; then K23 and K24 against their plain
                 versions on the phase's recorded inputs (CUDA events and a
-                CUDA graph; torch.cat + cast and torch.nonzero_static +
-                gather as K24's library times).
+                CUDA graph; K24 in turns with torch.cat + cast and
+                torch.nonzero_static + gather, by CUDA events and by the
+                host clock), and K20 against its plain version on the
+                grid's recorded cold-tick fill (8 x 2,048: CUDA events a
+                step and a CUDA graph).
 
 Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14, 15, 16
 and 17) runs with every launch count set to 0 just before it, and fails
@@ -1348,7 +1353,8 @@ def check_resident_kernels(rec):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, shape=f"k={k} of {g}x{n}")
 
-    # K8: the node-heavy cold re-upload's sparse scatter-add (and the zeros)
+    # K8: the node-heavy cold re-upload's sparse scatter-add (and the
+    # zeros), each in turns with its library call
     for key in ("svc_matrix_build zeros", "svc_matrix_build"):
         idx, vals, rows, cols = rec.calls[key]
         got = rs.svc_matrix_build.real(idx, vals, rows, cols)
@@ -1356,20 +1362,41 @@ def check_resident_kernels(rec):
         err = int((got - want).abs().max())
         if err:
             fail(f"{key} differs from its plain version")
-        ms, plain_ms = _time_pair(
-            lambda: rs.svc_matrix_build.real(idx, vals, rows, cols),
-            lambda: rs.svc_matrix_build_plain(idx, vals, rows, cols), 200)
-        idx64 = idx.long()
-        lib_ms = time_ms(lambda: torch.zeros(
-            rows * cols, dtype=torch.int32, device=idx.device).scatter_add_(
-                0, idx64, vals), 200)
         nnz = idx.shape[0]
+        idx64 = idx.long()
+
+        def kernel(idx=idx, vals=vals, rows=rows, cols=cols):
+            return rs.svc_matrix_build.real(idx, vals, rows, cols)
+
+        if nnz:
+            def library(idx64=idx64, vals=vals, rows=rows, cols=cols):
+                return torch.zeros(rows * cols, dtype=torch.int32,
+                                   device=idx64.device).scatter_add_(
+                                       0, idx64, vals)
+        else:
+            def library(rows=rows, cols=cols, dev=idx.device):
+                return torch.zeros(rows, cols, dtype=torch.int32,
+                                   device=dev)
+        if not torch.equal(library().view(rows, cols), got):
+            fail(f"the library call does not compute {key}'s function")
+        ms, lib_ms, turns = time_turns(kernel, library)
+        plain_ms = time_ms(
+            lambda: rs.svc_matrix_build_plain(idx, vals, rows, cols), 20)
+        ns, lib_ns, ns_turns = host_turns(kernel, library)
+        lib_g_ms = graph_ms(library)
         b_ms, b_by = bound(rows * cols * 4 + nnz * 8, nnz)
+        lib_name = "zeros + scatter_add_" if nnz else "zeros"
         log(f"[kernels] {key} (nnz={nnz}, {rows}x{cols}): equal to plain; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
-            f"ms; bound {b_ms:.6f} ms ({b_by})")
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library ({lib_name}) "
+            f"{lib_ms:.4f} ms (in turns, kernel / library: "
+            f"{_turns_text(turns)}); host ns a call {ns:.0f} vs library "
+            f"{lib_ns:.0f} (in turns: {_ns_turns_text(ns_turns)}); library "
+            f"graph {lib_g_ms:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
         out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        library_graph_ms=lib_g_ms, turns_ms=turns,
+                        host_ns=ns, library_host_ns=lib_ns,
+                        host_ns_turns=ns_turns,
                         shape=f"nnz={nnz}, {rows}x{cols}")
 
     # the device time alone, without each call's host cost
@@ -1391,6 +1418,7 @@ def check_resident_kernels(rec):
         log(f"[kernels] {key}: {out[key]['graph_ms']:.5f} ms per call "
             f"replayed from a CUDA graph, against {out[key]['ms']:.4f} ms "
             f"per call issued from the host")
+    out["svc_matrix_build"]["zeros"] = out.pop("svc_matrix_build zeros")
     return out
 
 
@@ -3491,6 +3519,63 @@ def _graph_step_ms(step, tables, fresh, G, reps=5):
     return graph_ms(run, iters=1, reps=reps) / G
 
 
+def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
+    """K20 (spread, topology), or K21 (binpack: `ops_fill` its operations a
+    node), against its plain version over every group of `tables` from
+    fresh copies of the shard states `base`; fails unless the counts, the
+    carries and the flags agree. Then ms a step by CUDA events and from a
+    CUDA graph (a cooperative launch can be captured), the plain
+    version's, and the bound from these shapes. Returns the kernels-line
+    row."""
+    from swarmkit_tpu_torch.ops.placement import FillState
+    from swarmkit_tpu_torch.parallel import fill
+
+    if ops_fill is None:
+        step = functools.partial(fill.sharded_water_fill_step,
+                                 n_branches=nb)
+        plain = fill.sharded_water_fill_step_plain
+    else:
+        step = fill.sharded_binpack_fill_step
+        plain = fill.sharded_binpack_fill_step_plain
+
+    def fresh():
+        return [FillState(*(x.clone() for x in st)) for st in base]
+    G = tables[0].n_tasks.shape[0]
+    got_s, want_s = fresh(), fresh()
+    got, f_k = fill.sharded_fill(tables, got_s, 0 if ops_fill is None
+                                 else 1, nb)
+    want = [torch.zeros_like(c) for c in got]
+    f_p = torch.zeros_like(f_k)
+    for g in range(G):
+        plain(tables, want_s, g, want, f_p)
+    err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    for a, b in zip(got_s, want_s):
+        err = max([err] + [int((x.int() - y.int()).abs().max())
+                           for x, y in zip(a, b)])
+    if err or f_k.any() or f_p.any():
+        fail(f"{name} differs from its plain version on {where} (err {err}, "
+             f"flags {f_k.tolist()} / {f_p.tolist()})")
+    _step_ms(step, tables, fresh, G, 1)                # warm-up
+    ms = _step_ms(step, tables, fresh, G, 5)
+    g_ms = _graph_step_ms(step, tables, fresh, G)
+    plain_ms = _step_ms(plain, tables, fresh, G, 1)
+    k, n = len(tables), tables[0].mask.shape[1]
+    N = k * n
+    R, PV = tables[0].need_res.shape[1], tables[0].group_ports.shape[1]
+    lmax = 0 if ops_fill is not None else tables[0].spread_rank.shape[1]
+    nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
+    extra = 3 * lmax + 31 * 4 if ops_fill is None else ops_fill
+    b_ms, b_by = bound(nbytes, N * (2 * R + 2 * PV + 6 + extra))
+    slots = f", {nb} branch slots" if ops_fill is None else ""
+    log(f"[kernels] {name} on {where} ({k} shards x {n} nodes, LMAX "
+        f"{lmax}{slots}): equal to plain over {G} steps; {ms:.4f} ms/launch, "
+        f"graph {g_ms:.4f} ms vs plain {plain_ms:.4f} ms; library none; "
+        f"bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, graph_ms=g_ms,
+                shape=f"{k}x{n}, G={G}, LMAX {lmax}")
+
+
 def check_mesh_kernels(rec):
     """K20-K22 against their plain versions on the [mesh] phase's
     scale-out inputs (131,072 nodes over 8 shards, 16 groups; the
@@ -3500,62 +3585,20 @@ def check_mesh_kernels(rec):
     computes them: the library time is none."""
     from swarmkit_tpu_torch.device import resolve_device
     from swarmkit_tpu_torch.ops import raft_replay as rr
-    from swarmkit_tpu_torch.ops.placement import FillState
     from swarmkit_tpu_torch.parallel import fill, mesh
 
     dev = resolve_device()
     m = mesh.make_mesh(MESH_SHARDS)
     out = {}
-    for name, key, step, plain, ops_fill in (
-            ("sharded_water_fill_step", "scale spread",
-             fill.sharded_water_fill_step, fill.sharded_water_fill_step_plain,
-             None),
-            ("sharded_binpack_fill_step", "scale binpack",
-             fill.sharded_binpack_fill_step,
-             fill.sharded_binpack_fill_step_plain, 11)):
-        p = rec[key]
-        args, _ = mesh.shard_problem(p, m)
+    for name, key, ops_fill in (("sharded_water_fill_step", "scale spread",
+                                 None),
+                                ("sharded_binpack_fill_step",
+                                 "scale binpack", 11)):
+        args, _ = mesh.shard_problem(rec[key], m)
         tables, base, nb = fill.fill_inputs(args)
-
-        def fresh(base=base):
-            return [FillState(*(x.clone() for x in st)) for st in base]
-        if step is fill.sharded_water_fill_step:
-            step = functools.partial(step, n_branches=nb)
-        G = p.n_tasks.shape[0]
-        got_s, want_s = fresh(), fresh()
-        got, f_k = fill.sharded_fill(tables, got_s, 0 if ops_fill is None
-                                     else 1, nb)
-        want = [torch.zeros_like(c) for c in got]
-        f_p = torch.zeros_like(f_k)
-        for g in range(G):
-            plain(tables, want_s, g, want, f_p)
-        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
-        for a, b in zip(got_s, want_s):
-            err = max([err] + [int((x.int() - y.int()).abs().max())
-                               for x, y in zip(a, b)])
-        if err or f_k.any() or f_p.any():
-            fail(f"{name} differs from its plain version on the scale-out "
-                 f"{key} (err {err}, flags {f_k.tolist()} / {f_p.tolist()})")
-        _step_ms(step, tables, fresh, G, 1)                # warm-up
-        ms = _step_ms(step, tables, fresh, G, 5)
-        g_ms = _graph_step_ms(step, tables, fresh, G)
-        plain_ms = _step_ms(plain, tables, fresh, G, 1)
-        N = MESH_SHARDS * tables[0].mask.shape[1]
-        R, PV = p.need_res.shape[1], p.group_ports.shape[1]
-        lmax = 0 if ops_fill is not None else p.spread_rank.shape[1]
-        nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
-        extra = 3 * lmax + 31 * 4 if ops_fill is None else ops_fill
-        b_ms, b_by = bound(nbytes, N * (2 * R + 2 * PV + 6 + extra))
-        slots = f", {nb} branch slots" if ops_fill is None else ""
-        log(f"[kernels] {name} on the scale-out {key.split()[1]} "
-            f"({MESH_SHARDS} shards x {N // MESH_SHARDS} nodes, LMAX "
-            f"{lmax}{slots}): equal to plain over {G} steps; "
-            f"{ms:.4f} ms/launch, graph {g_ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms; library none; bound {b_ms:.5f} ms ({b_by})")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         graph_ms=g_ms, shape=f"{MESH_SHARDS}x"
-                         f"{N // MESH_SHARDS}, G={G}, LMAX {lmax}")
+        out[name] = _check_sharded_fill(
+            name, f"the scale-out {key.split()[1]}", tables, base, nb,
+            ops_fill)
 
     rows = []
     for layout, key in (("managers", "tally managers"), ("log", "tally log")):
@@ -3653,16 +3696,18 @@ def phase_mesh_resident(seed, rec, ref):
 
 
 def check_mesh_resident_kernels(rec):
-    """K23 and K24 against their plain versions on the inputs recorded in
-    [mesh_resident] (the grid's churn tick; a grid tick's dense pull and a
-    node-heavy tick's sparse pull); times by CUDA events and from a CUDA
-    graph."""
+    """K23, K24 and K20 against their plain versions on the inputs
+    recorded in [mesh_resident] (the grid's churn tick; a grid tick's dense
+    pull and a node-heavy tick's sparse pull; the grid's cold-tick fill);
+    times by CUDA events and from a CUDA graph, K24's in turns with its
+    library calls by both clocks."""
     from swarmkit_tpu_torch.ops import resident_mesh as rm
+    from swarmkit_tpu_torch.parallel import fill
 
     out = {}
     missing = [k for k in ("sharded_delta_scatter",
                            "sharded_counts_pull dense",
-                           "sharded_counts_pull sparse")
+                           "sharded_counts_pull sparse", "sharded_fill")
                if k not in rec.calls]
     if missing:
         fail(f"[mesh_resident] no call recorded: {missing}")
@@ -3695,7 +3740,8 @@ def check_mesh_resident_kernels(rec):
         bound_by=b_by, library_ms=None, graph_ms=g_ms,
         shape=f"D={D}, {k}x{n}")
 
-    # K24: the dense and the sparse form
+    # K24: the dense and the sparse form, each in turns with its library
+    # call
     rows = {}
     for form in ("dense", "sparse"):
         args = rec.calls[f"sharded_counts_pull {form}"]
@@ -3708,25 +3754,30 @@ def check_mesh_resident_kernels(rec):
         if err or any(a.dtype != b.dtype for a, b in pairs):
             fail(f"sharded_counts_pull ({form}) differs from its plain "
                  "version")
-        ms, plain_ms = _time_pair(
-            lambda: rm.sharded_counts_pull.real(*args),
-            lambda: rm.sharded_counts_pull_plain(*args), 200)
-        g_ms = graph_ms(lambda: rm.sharded_counts_pull.real(*args))
+
+        def kernel(args=args):
+            return rm.sharded_counts_pull.real(*args)
+
+        g_ms = graph_ms(kernel)
         dt = torch.int16 if compact else torch.int32
         vb = 2 if compact else 4
         if kk is None:
-            def library():
+            def library(counts=counts, g=g, n=n, dt=dt):
                 return torch.cat(counts, 1)[:g, :n].to(dt)
             b_ms, b_by = bound(g * n * (4 + vb), 0)
+            path = ("vector" if rm.pull_vector(
+                [c.data_ptr() for c in counts], got.data_ptr(), n,
+                counts[0].shape[1]) else "scalar") + " path, "
         else:
             joined = torch.cat(counts, 1).contiguous()
 
-            def library():
+            def library(joined=joined, g=g, n=n, kk=kk):
                 flat = joined[:g, :n].reshape(-1)
                 nz = torch.nonzero_static(flat, size=kk,
                                           fill_value=0).reshape(-1)
                 return nz, flat[nz]
             b_ms, b_by = bound(g * n * 4 + kk * (4 + vb), g * n)
+            path = ""
         lib = library()
         same = (torch.equal(lib.int(), got.int()) if kk is None else
                 torch.equal(lib[0].int(), got[0])
@@ -3734,20 +3785,38 @@ def check_mesh_resident_kernels(rec):
         if not same:
             fail(f"the library call does not compute sharded_counts_pull "
                  f"({form})")
-        lib_ms = time_ms(library, 200)
+        ms, lib_ms, turns = time_turns(kernel, library)
+        plain_ms = time_ms(lambda: rm.sharded_counts_pull_plain(*args), 20)
+        ns, lib_ns, ns_turns = host_turns(kernel, library)
+        lib_g_ms = graph_ms(library)
         shape = (f"{g}x{n} of {len(counts)} x {tuple(counts[0].shape)}, "
                  f"{dt}" + ("" if kk is None else f", kk={kk}"))
-        log(f"[kernels] sharded_counts_pull {form} ({shape}): equal to "
-            f"plain; {ms:.4f} ms, graph {g_ms:.5f} ms vs plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms; bound "
-            f"{b_ms:.6f} ms ({b_by})")
+        log(f"[kernels] sharded_counts_pull {form} ({shape}, {path}equal to "
+            f"plain): {ms:.4f} ms, graph {g_ms:.5f} ms vs plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (in turns, kernel "
+            f"/ library: {_turns_text(turns)}); host ns a call {ns:.0f} vs "
+            f"library {lib_ns:.0f} (in turns: {_ns_turns_text(ns_turns)}); "
+            f"library graph {lib_g_ms:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
         rows[form] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                          graph_ms=g_ms, shape=shape)
+                          graph_ms=g_ms, library_graph_ms=lib_g_ms,
+                          turns_ms=turns, host_ns=ns, library_host_ns=lib_ns,
+                          host_ns_turns=ns_turns, shape=shape)
     out["sharded_counts_pull"] = dict(rows["dense"], sparse=rows["sparse"],
                                       max_abs_err=max(
                                           r["max_abs_err"]
                                           for r in rows.values()))
+
+    # K20 at the mesh tick's grid shape: the groups of the recorded first
+    # spread fill (the grid's cold tick), from fresh copies of its carry
+    tables, states, _, nb = rec.calls["sharded_fill"]
+    # the recording copied each shard's tables apart: share the group-side
+    # ones again, as the step requires
+    tables = [t._replace(**{f: getattr(tables[0], f)
+                            for f in fill._GROUP_FIELDS}) for t in tables]
+    out["sharded_water_fill_step mesh_resident"] = _check_sharded_fill(
+        "sharded_water_fill_step", "the mesh tick's grid", tables, states,
+        nb)
     return out
 
 
@@ -3944,11 +4013,15 @@ def main() -> int:
     mesh_res_rec.wrap(rm, "sharded_delta_scatter")
     mesh_res_rec.wrap(rm, "sharded_counts_pull", key=lambda a: (
         "sharded_counts_pull " + ("dense" if len(a) == 4 else "sparse")))
+    mesh_res_rec.wrap(rm, "sharded_fill", key=lambda a: (
+        "sharded_fill" if a[2] == 0 else None))
     by_path["mesh_resident"] = drive(
         "mesh_resident", wrappers,
         lambda: phase_mesh_resident(seed, mesh_res_rec, steady_ref))
     del steady_ref
     results.update(check_mesh_resident_kernels(mesh_res_rec))
+    results["sharded_water_fill_step"]["mesh_resident"] = results.pop(
+        "sharded_water_fill_step mesh_resident")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -3961,9 +4034,11 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), graph_ms=r.get("graph_ms"),
             equal_to_plain=r["max_abs_err"] == 0,
-            **{k: r[k] for k in ("sparse", "turns_ms", "ms_quorum_on_card",
+            **{k: r[k] for k in ("sparse", "zeros", "turns_ms",
+                                 "ms_quorum_on_card",
                                  "graph_ms_quorum_on_card", "host_ns",
-                                 "library_host_ns", "host_ns_turns")
+                                 "library_host_ns", "host_ns_turns",
+                                 "library_graph_ms", "mesh_resident")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -110,6 +110,7 @@ ENTRIES = {
     },
     "sharded_counts_pull": {
         "skt_sharded_counts_dense": [_P] * 2 + [_I] * 5 + [_P],
+        "skt_sharded_counts_dense_vec4": [_P] * 2 + [_I] * 5 + [_P],
         "skt_sharded_counts_sparse": [_P] * 4 + [_I] * 6 + [_P],
     },
 }

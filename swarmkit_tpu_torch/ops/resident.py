@@ -248,6 +248,12 @@ def svc_matrix_build_plain(idx, vals, rows: int, cols: int):
     return out.view(rows, cols)
 
 
+@functools.cache
+def _svc_matrix_build_entry():
+    """K8's C entry, resolved once."""
+    return _kernels.lib("svc_matrix_build").skt_svc_matrix_build
+
+
 def svc_matrix_build(idx, vals, rows: int, cols: int):
     """The [rows, cols] service matrix from its nonzero cells (flat int32
     indices, int32 values; none for the all-zero matrix), made on idx's
@@ -256,14 +262,18 @@ def svc_matrix_build(idx, vals, rows: int, cols: int):
     if _kernels.route("resident", idx, vals) == "plain":
         return svc_matrix_build_plain(idx, vals, rows, cols)
     nnz = idx.shape[0]
-    _expect(idx, "idx", torch.int32, (nnz,))
-    _expect(vals, "vals", torch.int32, (nnz,))
-    if rows * cols >= _I32_LIMIT:
+    if not (idx.dtype is vals.dtype is torch.int32 and idx.dim() == 1
+            and vals.shape == idx.shape and idx.is_contiguous()
+            and vals.is_contiguous()):    # find the first fault, in order
+        _expect(idx, "idx", torch.int32, (nnz,))
+        _expect(vals, "vals", torch.int32, (nnz,))
+    cells = rows * cols
+    if cells >= _I32_LIMIT:
         raise ValueError(f"{rows} x {cols} cells: flat indices need int32")
-    out = torch.empty((rows, cols), dtype=torch.int32, device=idx.device)
-    rc = _kernels.lib("svc_matrix_build").skt_svc_matrix_build(
-        _ptr(idx), _ptr(vals), _ptr(out), rows * cols, nnz,
-        _kernels.stream_of(out))
+    out = idx.new_empty((rows, cols))
+    rc = _svc_matrix_build_entry()(idx.data_ptr(), vals.data_ptr(),
+                                   out.data_ptr(), cells, nnz,
+                                   _kernels.raw_stream(idx))
     _kernels.check(rc, "svc_matrix_build")
     svc_matrix_build.launches += 1
     return out

@@ -39,7 +39,8 @@ runs for CPU tensors only; a CUDA tensor launches the kernel or raises):
 """
 from __future__ import annotations
 
-import ctypes
+import functools
+import struct
 
 import numpy as np
 import torch
@@ -197,13 +198,50 @@ def _check_pull(counts, g: int, n: int) -> tuple[int, int]:
     if not 1 <= ks <= MAX_PULL_SHARDS:
         raise ValueError(f"{ks} shards: the pull takes 1 to "
                          f"{MAX_PULL_SHARDS}")
-    Gc, ns = counts[0].shape if counts[0].dim() == 2 else (-1, -1)
-    for b, c in enumerate(counts):
-        _expect(c, f"counts[{b}]", torch.int32, (Gc, ns))
+    shape = counts[0].shape
+    if len(shape) != 2 or not all(
+            c.dtype is torch.int32 and c.shape == shape and c.is_contiguous()
+            for c in counts):           # find the first fault, in order
+        Gc, ns = shape if len(shape) == 2 else (-1, -1)
+        for b, c in enumerate(counts):
+            _expect(c, f"counts[{b}]", torch.int32, (Gc, ns))
+    Gc, ns = shape
     if not (0 <= g <= Gc and 0 <= n <= ks * ns):
         raise ValueError(f"window [{g}, {n}] outside {ks} shards of "
                          f"[{Gc}, {ns}]")
     return ks, ns
+
+
+def pull_vector(ptrs, dst: int, n: int, n_shard: int) -> bool:
+    """Whether K24's dense form takes its vector path (4 cells a thread,
+    16-byte loads) for a window n columns wide out of shards n_shard
+    columns wide, from the shard addresses `ptrs` to the address dst: only
+    when every shard row starts on a 16-byte boundary and every window row
+    and shard segment on a 4-cell one (all addresses 16-byte aligned, n and
+    n_shard multiples of 4)."""
+    if n % 4 or n_shard % 4:
+        return False
+    bits = dst
+    for p in ptrs:
+        bits |= p
+    return bits % 16 == 0
+
+
+@functools.cache
+def shard_pointers(k: int) -> struct.Struct:
+    """The packer of k shard addresses into the host array of pointers
+    K24's C entries read (k native 64-bit words): `.pack(*ptrs)`, cheaper
+    than building a ctypes array."""
+    return struct.Struct(f"{k}Q")
+
+
+@functools.cache
+def _pull_entries():
+    """K24's C entries, resolved once: (dense scalar path, dense vector
+    path, sparse)."""
+    lib = _kernels.lib("sharded_counts_pull")
+    return (lib.skt_sharded_counts_dense, lib.skt_sharded_counts_dense_vec4,
+            lib.skt_sharded_counts_sparse)
 
 
 def sharded_counts_pull(counts, g: int, n: int, compact: bool,
@@ -218,17 +256,19 @@ def sharded_counts_pull(counts, g: int, n: int, compact: bool,
     if _kernels.route("sharded resident", *counts) == "plain":
         return sharded_counts_pull_plain(counts, g, n, compact, k)
     ks, ns = _check_pull(counts, g, n)
-    dev = counts[0].device
-    ptrs = (ctypes.c_void_p * ks)(*(c.data_ptr() for c in counts))
-    cdll = _kernels.lib("sharded_counts_pull")
+    ptrs = [c.data_ptr() for c in counts]
+    shards = shard_pointers(ks).pack(*ptrs)
+    dense, dense_vec4, sparse = _pull_entries()
+    c0 = counts[0]
     dtype = _counts_dtype(compact)
-    stream = _kernels.stream_of(counts[0])
+    stream = _kernels.raw_stream(c0)
     if k is None:
-        out = torch.empty((g, n), dtype=dtype, device=dev)
+        out = c0.new_empty((g, n), dtype=dtype)
         if g * n == 0:
             return out
-        rc = cdll.skt_sharded_counts_dense(ptrs, out.data_ptr(), g, n, ns,
-                                           ks, int(compact), stream)
+        dst = out.data_ptr()
+        launch = dense_vec4 if pull_vector(ptrs, dst, n, ns) else dense
+        rc = launch(shards, dst, g, n, ns, ks, int(compact), stream)
         result = out
     else:
         if g * n == 0 or k < 1:
@@ -237,12 +277,11 @@ def sharded_counts_pull(counts, g: int, n: int, compact: bool,
         if g * n >= _I32_LIMIT:
             raise ValueError(f"window of {g * n} cells: flat indices need "
                              "int32")
-        scratch = torch.empty(g * ks + 2, dtype=torch.int32, device=dev)
-        idx = torch.empty(k, dtype=torch.int32, device=dev)
-        vals = torch.empty(k, dtype=dtype, device=dev)
-        rc = cdll.skt_sharded_counts_sparse(
-            ptrs, idx.data_ptr(), vals.data_ptr(), scratch.data_ptr(), g, n,
-            ns, ks, k, int(compact), stream)
+        scratch = c0.new_empty(g * ks + 2)
+        idx = c0.new_empty(k)
+        vals = c0.new_empty(k, dtype=dtype)
+        rc = sparse(shards, idx.data_ptr(), vals.data_ptr(),
+                    scratch.data_ptr(), g, n, ns, ks, k, int(compact), stream)
         result = (idx, vals)
     _kernels.check(rc, "sharded_counts_pull")
     sharded_counts_pull.launches += 1
