@@ -10,7 +10,9 @@ result line) if any phase fails:
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
                 card, at the main path's shapes (10,000 nodes, 20 groups,
                 K9 on the grid problem encoded for binpack; a 5 x 2^20 raft
-                log), exactly equal; times by CUDA events;
+                log), exactly equal; times by CUDA events (K3 also from a
+                CUDA graph, with its launch: cluster size, shared memory,
+                routes, and ptxas' registers, stack and spills);
   4. waves    — three scheduler waves of 100,000 tasks (20 services x 5,000)
                 onto 10,000 nodes: encode -> device_schedule_encoded ->
                 materialize_orders -> apply_wave (the native walk), each
@@ -42,7 +44,8 @@ result line) if any phase fails:
   9. resident kernels — K1-K3 and K9 against their plain versions on the
                 first steady wave of each configuration (the resident
                 shapes: nodes padded to 16,384 and 131,072, LMAX 3 padded to
-                4, the group tables as row views), and K5-K8 on inputs
+                4, the group tables as row views; K3 also from a CUDA graph,
+                with its launch), and K5-K8 on inputs
                 recorded from phase 8; times by CUDA events, and for K5-K8
                 also the device time alone (their calls replayed from a
                 CUDA graph); K6 in turns with its library call (the slice
@@ -161,7 +164,9 @@ result line) if any phase fails:
                 oracle on 2 shards (8 shards twice: the first call of
                 the shapes, then again); then K20-K22 against their plain
                 versions on the scale-out inputs (CUDA events and a CUDA
-                graph).
+                graph; K20 with its launch), and K3 on the scale-out spread
+                problem as the one-device cluster_step runs it (131,072
+                nodes, LMAX 2; CUDA events, a CUDA graph, its launch).
  17. mesh_resident — the resident tick with its carry node-sharded over 8
                 shards of the card (MeshResidentPlacement under
                 TickPipeline): phase 8's grid (10,000 nodes, 20 x 5,000
@@ -191,6 +196,7 @@ line of its output is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import gc
 import json
@@ -363,6 +369,10 @@ def phase_build():
     for name, (sec, out) in built.items():
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         log(f"[build] {name}: {sec:.2f} s; {'; '.join(regs)}")
+        PTXAS[name] = "; ".join(
+            ln.strip().replace("ptxas info    : ", "")
+            for ln in out.splitlines()
+            if "registers" in ln or "stack frame" in ln)
     for name in _kernels.ENTRIES:
         _kernels.lib(name)
     cc.join()
@@ -372,6 +382,41 @@ def phase_build():
     log(f"[build] {len(built)} kernel libraries built in "
         f"{time.perf_counter() - t0:.2f} s (wall); native walk "
         f"{native.LIB.name} loaded after {box['s']:.2f} s")
+
+
+# ptxas' registers, shared memory, stack and spills of each library built
+# in this run ([build])
+PTXAS = {}
+
+
+def fill_launch(N, nb, k=None) -> dict:
+    """How the water-fill body (csrc/water_fill.cuh) launches a step of K3
+    (k None: one shard of N nodes) or K20 (k shards of N / k): the C plan
+    query's cluster size, shared memory and routes, and the ptxas line of
+    the library."""
+    from swarmkit_tpu_torch.ops import _kernels
+
+    buf = (ctypes.c_int * 4)()
+    if k is None:
+        name = "tree_fill"
+        rc = _kernels.lib(name).skt_tree_fill_plan(N, nb, buf)
+    else:
+        name = "sharded_water_fill"
+        rc = _kernels.lib(name).skt_sharded_water_fill_plan(k, N // k, nb,
+                                                            buf)
+    if rc:
+        fail(f"{name}: plan query, CUDA error {rc}")
+    C, smem, node_smem, shared = buf
+    route = (f"{'shared' if shared else 'global'} route, nodes in "
+             f"{'shared memory' if node_smem else 'device scratch'}")
+    return dict(route=route, cluster=C, smem_bytes=smem,
+                ptxas=PTXAS.get(name, "not rebuilt in this run"))
+
+
+def _launch_text(plan) -> str:
+    return (f"cluster of {plan['cluster']} blocks x 1024 threads, "
+            f"{plan['smem_bytes']} B dynamic shared memory, {plan['route']};"
+            f" ptxas: {plan['ptxas']}")
 
 
 def _tables_and_state(args, mask):
@@ -432,7 +477,7 @@ def check_mask(name, p_args, dims):
 
 
 def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
-               ops_per_node=None):
+               ops_per_node=None, tree=False):
     tables, fresh_state = _tables_and_state(p_args, mask)
     G, N, R, PV = dims["G"], dims["N"], dims["R"], dims["PV"]
     s_k, s_p = fresh_state(), fresh_state()
@@ -469,6 +514,12 @@ def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
     per_launch(kernel_step, 1)                       # warm-up
     ms = per_launch(kernel_step, 5)
     plain_ms = per_launch(plain_step, 2)
+    extra_row, extra_text = {}, ""
+    if tree:  # K3: the graph time and how the step launches
+        g_ms = _graph_fill_ms(kernel_step, tables, fresh_state, G, N)
+        plan = fill_launch(N, int(tables.spread_rank.max()) + 1)
+        extra_row = dict(graph_ms=g_ms, launch=plan)
+        extra_text = f", graph {g_ms:.4f} ms; {_launch_text(plan)}"
     # per group step: read the group's rows (mask, penalty, spread ids),
     # read and write the node state (totals, service row, resources,
     # ports), write the counts row. Operations: per node, the caps
@@ -481,9 +532,26 @@ def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
     b_ms, b_by = bound(nbytes, nops)
     log(f"[kernels] {kernel_step.__name__} on {name} (N={N}, LMAX={lmax}): "
         f"equal to plain over {G} steps; {ms:.4f} ms/launch vs plain "
-        f"{plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+        f"{plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}){extra_text}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, **extra_row)
+
+
+def _graph_fill_ms(step, tables, fresh_state, G, N):
+    """Mean device ms per one-device group step from a CUDA graph of the G
+    steps and the copies that restore the state before them."""
+    pristine, state = fresh_state(), fresh_state()
+    dev = tables.mask.device
+    out = torch.zeros((G, N), dtype=torch.int32, device=dev)
+    flags = torch.zeros(G, dtype=torch.int32, device=dev)
+
+    def run():
+        for a, b in zip(state, pristine):
+            a.copy_(b)
+        for g in range(G):
+            step(tables, state, g, out, flags)
+
+    return graph_ms(run, iters=1, reps=5) / G
 
 
 def check_replay(acks, quorum):
@@ -543,7 +611,7 @@ def phase_kernels(seed):
         pl.flat_fill_step_plain, 0)
     results["tree_fill_step"] = check_fill(
         "flagship", flag_a, fd, flag_mask, pl.tree_fill_step,
-        pl.tree_fill_step_plain, fd["L"])
+        pl.tree_fill_step_plain, fd["L"], tree=True)
     # K9 on the binpack-encoded grid (the mask is the grid's: binpack only
     # changes the fill). Operations the function needs per node beyond the
     # caps: one lexicographic compare of its 4-key against the boundary's
@@ -1212,6 +1280,7 @@ def check_steady_placement(rec):
     and carry must be equal."""
     from swarmkit_tpu_torch.ops import placement as pl
 
+    rows = {}
     for config, step in STEADY_FILLS.items():
         keys = (f"static_mask {config}", f"{step} {config}")
         missing = [k for k in keys if k not in rec.calls]
@@ -1250,9 +1319,25 @@ def check_steady_placement(rec):
                 fail(f"{step} differs from its plain version on the "
                      f"{config} steady wave ({what})")
         ms = min(run(getattr(pl, step).real)[1] for _ in range(3))
+        extra = ""
+        if step == "tree_fill_step":  # K3: graph time, launch, a row
+            def steps(st=_clone(state), o=out.clone(), f=flags.clone(),
+                      src=_clone(state)):
+                for a, b in zip(st, src):
+                    a.copy_(b)
+                for g in range(g0, G):
+                    pl.tree_fill_step.real(tables, st, g, o, f)
+            g_ms = graph_ms(steps, iters=1, reps=5) / (G - g0)
+            plan = fill_launch(N, int(tables.spread_rank.max()) + 1)
+            extra = f", graph {g_ms:.4f} ms; {_launch_text(plan)}"
+            rows["tree_fill_step steady"] = dict(
+                ms=ms, graph_ms=g_ms, plain_ms=plain_ms, launch=plan,
+                shape=f"G={G} (groups {g0}-{G - 1}), N={N}, LMAX {L}")
         log(f"[kernels] static_mask and {step} on the {config} steady wave "
             f"(G={G}, N={N}, LMAX {L}, groups {g0}-{G - 1}): equal to "
-            f"plain; {step} {ms:.4f} ms/launch vs plain {plain_ms:.4f} ms")
+            f"plain; {step} {ms:.4f} ms/launch vs plain {plain_ms:.4f} ms"
+            f"{extra}")
+    return rows
 
 
 def check_resident_kernels(rec):
@@ -3567,13 +3652,36 @@ def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
     extra = 3 * lmax + 31 * 4 if ops_fill is None else ops_fill
     b_ms, b_by = bound(nbytes, N * (2 * R + 2 * PV + 6 + extra))
     slots = f", {nb} branch slots" if ops_fill is None else ""
+    plan = fill_launch(N, nb, k) if ops_fill is None else None
+    launch = "" if plan is None else f"; {_launch_text(plan)}"
     log(f"[kernels] {name} on {where} ({k} shards x {n} nodes, LMAX "
         f"{lmax}{slots}): equal to plain over {G} steps; {ms:.4f} ms/launch, "
         f"graph {g_ms:.4f} ms vs plain {plain_ms:.4f} ms; library none; "
-        f"bound {b_ms:.5f} ms ({b_by})")
+        f"bound {b_ms:.5f} ms ({b_by}){launch}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, graph_ms=g_ms,
-                shape=f"{k}x{n}, G={G}, LMAX {lmax}")
+                shape=f"{k}x{n}, G={G}, LMAX {lmax}",
+                **({} if plan is None else {"launch": plan}))
+
+
+def check_mesh_tree(p):
+    """K3 at [mesh]'s one-device comparison: the scale-out spread problem
+    (131,072 nodes, LMAX 2) as the one-device cluster_step runs it, every
+    group against the plain version; CUDA events and a CUDA graph."""
+    from swarmkit_tpu_torch.convert import (
+        check_kernel_args,
+        kernel_args_from_arrays,
+    )
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.ops import placement as pl
+    from swarmkit_tpu_torch.scheduler.encode import kernel_args
+
+    args = kernel_args_from_arrays(kernel_args(p), resolve_device())
+    dims = check_kernel_args(args)
+    mask = pl.static_mask(*[args[i] for i in (0, 1, 2, 3, 5, 6, 7, 4, 20)])
+    step = getattr(pl.tree_fill_step, "real", pl.tree_fill_step)
+    return check_fill("the scale-out spread, one device", args, dims, mask,
+                      step, pl.tree_fill_step_plain, dims["L"], tree=True)
 
 
 def check_mesh_kernels(rec):
@@ -3599,6 +3707,7 @@ def check_mesh_kernels(rec):
         out[name] = _check_sharded_fill(
             name, f"the scale-out {key.split()[1]}", tables, base, nb,
             ops_fill)
+    out["tree_fill_step mesh"] = check_mesh_tree(rec["scale spread"])
 
     rows = []
     for layout, key in (("managers", "tally managers"), ("log", "tally log")):
@@ -3977,7 +4086,7 @@ def main() -> int:
     steady_ref = {}
     by_path["steady"] = drive("steady", wrappers,
                               lambda: phase_steady(seed, rec, steady_ref))
-    check_steady_placement(rec)
+    steady_rows = check_steady_placement(rec)
     results.update(check_resident_kernels(rec))
     replay_rec = {}
     by_path["replay"] = drive("replay", wrappers,
@@ -4022,6 +4131,9 @@ def main() -> int:
     results.update(check_mesh_resident_kernels(mesh_res_rec))
     results["sharded_water_fill_step"]["mesh_resident"] = results.pop(
         "sharded_water_fill_step mesh_resident")
+    results["tree_fill_step"]["steady"] = steady_rows[
+        "tree_fill_step steady"]
+    results["tree_fill_step"]["mesh"] = results.pop("tree_fill_step mesh")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -4038,7 +4150,8 @@ def main() -> int:
                                  "ms_quorum_on_card",
                                  "graph_ms_quorum_on_card", "host_ns",
                                  "library_host_ns", "host_ns_turns",
-                                 "library_graph_ms", "mesh_resident")
+                                 "library_graph_ms", "mesh_resident",
+                                 "steady", "mesh", "launch")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -38,7 +38,8 @@ ENTRIES = {
     },
     "tree_fill": {
         "skt_tree_fill_step": [_P] * 17 + [_I] * 5 + [_P],
-        "skt_tree_fill_scratch_i32": [],
+        "skt_tree_fill_scratch_i32": [_I, _I],
+        "skt_tree_fill_plan": [_I, _I, _P],
     },
     "replay_commit": {
         "skt_replay_commit": [_P] * 4 + [_I] * 2 + [_P],
@@ -95,8 +96,9 @@ ENTRIES = {
     },
     "sharded_water_fill": {
         "skt_sharded_water_fill_step": [_P] * 12 + [_I] * 7 + [_P],
-        "skt_sharded_water_fill_scratch": [_I],
+        "skt_sharded_water_fill_scratch": [_I] * 4,
         "skt_sharded_water_fill_max_shards": [],
+        "skt_sharded_water_fill_plan": [_I] * 3 + [_P],
     },
     "sharded_binpack_fill": {
         "skt_sharded_binpack_fill_step": [_P] * 10 + [_I] * 5 + [_P],

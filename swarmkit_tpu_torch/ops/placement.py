@@ -403,6 +403,14 @@ def _check_fill(t: FillTables, s: FillState, out,
     return G, N, R, PV, L
 
 
+def _scratch_words(words: int, what: str) -> int:
+    """A C scratch query's int32 word count; negative means it passed an
+    int, where the kernels' offsets stop."""
+    if words < 0:
+        raise ValueError(f"{what}: scratch past 2^31 int32 words")
+    return words
+
+
 def _group_ptrs(t: FillTables):
     return (_ptr(t.mask), _ptr(t.need_res), _ptr(t.n_tasks), _ptr(t.svc_idx),
             _ptr(t.max_replicas), _ptr(t.penalty), _ptr(t.has_ports),
@@ -448,13 +456,14 @@ def tree_fill_step(t: FillTables, s: FillState, g: int, out,
     if L == 0:
         raise ValueError("tree_fill_step needs LMAX > 0 (use flat_fill_step)")
     cdll = _kernels.lib("tree_fill")
-    scratch = torch.empty(cdll.skt_tree_fill_scratch_i32() * N,
+    scratch = torch.empty(_scratch_words(cdll.skt_tree_fill_scratch_i32(N, L),
+                                         "tree_fill_step"),
                           dtype=torch.int32, device=out.device)
     scratch64 = torch.empty(2 * N, dtype=torch.int64, device=out.device)
     rc = cdll.skt_tree_fill_step(
         *_group_ptrs(t), _ptr(t.spread_rank), *_state_ptrs(s), _ptr(out),
         _ptr(flags), _ptr(scratch), _ptr(scratch64), g, N, R, PV, L,
-        _kernels.stream_of(out))
+        _kernels.raw_stream(out))
     _kernels.check(rc, "tree_fill_step")
     tree_fill_step.launches += 1
 

@@ -10,17 +10,18 @@ replicated, one copy shared by every shard) and `FillState` (the shard's
 node carry), and a counts tensor int32[G, n] per shard; it writes the
 group's overflow flag and folds each shard's state in place, as the
 one-device steps do (`ops/placement.py`). Two kernels carry it, each a
-hand-written CUDA kernel launched cooperatively, one block a shard, with its
-plain PyTorch version beside its wrapper:
+hand-written CUDA kernel with its plain PyTorch version beside its wrapper:
 
   * `sharded_water_fill_step`   (K20, csrc/sharded_water_fill.cu) — spread
-    and topology, flat (no spread levels) or tree;
+    and topology, flat (no spread levels) or tree: the water-fill body of
+    csrc/water_fill.cuh (K3's too), one thread block cluster whose blocks
+    share the global node range in chunks, whatever the shard count;
   * `sharded_binpack_fill_step` (K21, csrc/sharded_binpack_fill.cu) —
-    binpack.
+    binpack, launched cooperatively, one block a shard.
 
 A wrapper runs the plain version for tensors on the CPU and launches the
-kernel for tensors on one CUDA device; shards on two devices, or a shard
-count the card cannot hold co-resident, raise. Every launch adds one to the
+kernel for tensors on one CUDA device; shards on two devices, or more
+shards than `max_shards` allows, raise. Every launch adds one to the
 wrapper's `launches` counter.
 
 The plain versions are the reference's algorithms in sharded form: each
@@ -50,6 +51,7 @@ from ..ops.placement import (
     _check_fill,
     _fold_plain,
     _node_caps_plain,
+    _scratch_words,
     _segment_min,
     _segment_sum,
     _segmented_pour_plain,
@@ -252,6 +254,46 @@ def _check_shards(tables, states, outs, flags, g) -> tuple[int, ...]:
     return k, n, R, PV, L
 
 
+def _fits(x, dtype, shape) -> bool:
+    return x.dtype == dtype and x.shape == shape and x.is_contiguous()
+
+
+def _water_fill_dims(tables, states, outs, flags, g) -> tuple[int, ...]:
+    """`_check_shards` in one pass for K20's launches: the same conditions,
+    each tensor read once (the group-side tables once for all shards).
+    Whatever it does not accept goes through `_check_shards`, which raises
+    its error as before. Returns (k, n, R, PV, L)."""
+    try:
+        k = len(tables)
+        t0 = tables[0]
+        G, n = t0.mask.shape
+        R, PV = t0.need_res.shape[1], t0.group_ports.shape[1]
+        L, S = t0.spread_rank.shape[1], states[0].svc_counts.shape[0]
+        i32, b8 = torch.int32, torch.bool
+        group = [getattr(t0, f) for f in _GROUP_FIELDS]
+        ok = (len(states) == k == len(outs) and 0 <= g < G
+              and k * n < 1 << 31 and _fits(flags, i32, (G,))
+              and all(_fits(x, dt, sh) for x, dt, sh in zip(
+                  group, (i32, i32, i32, i32, b8, b8),
+                  ((G, R), (G,), (G,), (G,), (G,), (G, PV))))
+              and all(all(getattr(t, f) is x
+                          for f, x in zip(_GROUP_FIELDS, group))
+                      and _fits(t.mask, b8, (G, n))
+                      and _fits(t.penalty, b8, (G, n))
+                      and _fits(t.spread_rank, i32, (G, L, n))
+                      and _fits(s.totals, i32, (n,))
+                      and _fits(s.svc_counts, i32, (S, n))
+                      and _fits(s.avail, i32, (n, R))
+                      and _fits(s.port_used, b8, (n, PV))
+                      and _fits(o, i32, (G, n))
+                      for t, s, o in zip(tables, states, outs)))
+    except (AttributeError, IndexError, TypeError, ValueError):
+        ok = False
+    if ok:
+        return k, n, R, PV, L
+    return _check_shards(tables, states, outs, flags, g)
+
+
 def _shard_rows(tables, states, outs):
     """Each shard's row of the kernels' pointer table, in the order of
     csrc/mesh.cuh's ShardRow."""
@@ -278,25 +320,29 @@ def sharded_water_fill_step(tables, states, g, outs, flags,
     if _kernels.route("sharded placement",
                       *_tensors(tables, states, outs, flags)) == "plain":
         return sharded_water_fill_step_plain(tables, states, g, outs, flags)
-    k, n, R, PV, L = _check_shards(tables, states, outs, flags, g)
+    k, n, R, PV, L = _water_fill_dims(tables, states, outs, flags, g)
     Np = k * n
     NB = 1 if L == 0 else (Np if n_branches is None else n_branches)
     if not 1 <= NB <= Np:
         raise ValueError(f"n_branches {NB} outside [1, {Np}]")
     dev = flags.device
     cdll = _kernels.lib("sharded_water_fill")
-    br = torch.empty(cdll.skt_sharded_water_fill_scratch(0) * NB,
-                     dtype=torch.int32, device=dev)
-    br64 = torch.empty(2 * NB, dtype=torch.int64, device=dev)
-    node = torch.empty(cdll.skt_sharded_water_fill_scratch(1) * Np,
-                       dtype=torch.int32, device=dev)
-    xch = torch.empty(_EXCHANGE_SLOTS * k, dtype=torch.int64, device=dev)
+    words = cdll.skt_sharded_water_fill_scratch
+    nb_words = _scratch_words(words(0, Np, NB, L), "sharded_water_fill_step")
+    node_words = _scratch_words(words(1, Np, NB, L),
+                                "sharded_water_fill_step")
+    # one allocation: the branch words, the int64 pair (8-byte aligned),
+    # the node words
+    at64 = (nb_words + 1) // 2 * 2
+    scratch = torch.empty(at64 + 4 * NB + node_words, dtype=torch.int32,
+                          device=dev)
+    base = scratch.data_ptr()
     rows = _kernels.pointer_table(_shard_rows(tables, states, outs),
                                    dev)
     rc = cdll.skt_sharded_water_fill_step(
         *_group_ptrs(tables[0]), rows.data_ptr(), flags.data_ptr(),
-        node.data_ptr(), br.data_ptr(), br64.data_ptr(), xch.data_ptr(), g,
-        k, n, R, PV, L, NB, _kernels.stream_of(flags))
+        base + 4 * (at64 + 4 * NB), base, base + 4 * at64, None, g,
+        k, n, R, PV, L, NB, _kernels.raw_stream(flags))
     _kernels.check(rc, "sharded_water_fill_step")
     sharded_water_fill_step.launches += 1
 
@@ -331,8 +377,9 @@ sharded_binpack_fill_step.launches = 0
 
 
 def max_shards(strategy: int = 0) -> int:
-    """The most shards the card holds co-resident for the strategy's
-    kernel (its cooperative launch refuses more)."""
+    """The most shards the strategy's kernel takes: for K21 the blocks the
+    card holds co-resident (its cooperative launch refuses more); for K20 a
+    fixed 1,024 (its blocks do not map to shards)."""
     if strategy == 1:
         n = _kernels.lib("sharded_binpack_fill") \
             .skt_sharded_binpack_fill_max_shards()
