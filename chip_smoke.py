@@ -10,9 +10,10 @@ result line) if any phase fails:
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
                 card, at the main path's shapes (10,000 nodes, 20 groups,
                 K9 on the grid problem encoded for binpack; a 5 x 2^20 raft
-                log), exactly equal; times by CUDA events (K3 also from a
-                CUDA graph, with its launch: cluster size, shared memory,
-                routes, and ptxas' registers, stack and spills);
+                log), exactly equal; times by CUDA events (K2, K3 and K9
+                also from a CUDA graph, with their launch: cluster size,
+                shared memory, routes, and ptxas' registers, stack and
+                spills; K9 with its key route on the inputs);
   4. waves    — three scheduler waves of 100,000 tasks (20 services x 5,000)
                 onto 10,000 nodes: encode -> device_schedule_encoded ->
                 materialize_orders -> apply_wave (the native walk), each
@@ -44,8 +45,8 @@ result line) if any phase fails:
   9. resident kernels — K1-K3 and K9 against their plain versions on the
                 first steady wave of each configuration (the resident
                 shapes: nodes padded to 16,384 and 131,072, LMAX 3 padded to
-                4, the group tables as row views; K3 also from a CUDA graph,
-                with its launch), and K5-K8 on inputs
+                4, the group tables as row views; K2, K3 and K9 also from
+                a CUDA graph, with their launch), and K5-K8 on inputs
                 recorded from phase 8; times by CUDA events, and for K5-K8
                 also the device time alone (their calls replayed from a
                 CUDA graph); K6 in turns with its library call (the slice
@@ -164,9 +165,10 @@ result line) if any phase fails:
                 oracle on 2 shards (8 shards twice: the first call of
                 the shapes, then again); then K20-K22 against their plain
                 versions on the scale-out inputs (CUDA events and a CUDA
-                graph; K20 with its launch), and K3 on the scale-out spread
-                problem as the one-device cluster_step runs it (131,072
-                nodes, LMAX 2; CUDA events, a CUDA graph, its launch).
+                graph; K20 with its launch), and K3 and K9 on the scale-out
+                spread and binpack problems as the one-device cluster_step
+                runs them (131,072 nodes, spread LMAX 2; CUDA events, a
+                CUDA graph, the launch).
  17. mesh_resident — the resident tick with its carry node-sharded over 8
                 shards of the card (MeshResidentPlacement under
                 TickPipeline): phase 8's grid (10,000 nodes, 20 x 5,000
@@ -389,26 +391,29 @@ def phase_build():
 PTXAS = {}
 
 
-def fill_launch(N, nb, k=None) -> dict:
-    """How the water-fill body (csrc/water_fill.cuh) launches a step of K3
-    (k None: one shard of N nodes) or K20 (k shards of N / k): the C plan
-    query's cluster size, shared memory and routes, and the ptxas line of
-    the library."""
+def fill_launch(N, nb=1, k=None, name=None) -> dict:
+    """How a fill step launches, from its library's C plan query, with the
+    library's ptxas line: the water-fill body (csrc/water_fill.cuh) of K3
+    (name None, k None: one shard of N nodes, nb branch slots), K2
+    (`flat_fill`: one shard, one slot) or K20 (k shards of N / k); or K9's
+    radix select (`binpack_fill`, csrc/binpack_select.cuh)."""
     from swarmkit_tpu_torch.ops import _kernels
 
-    buf = (ctypes.c_int * 4)()
-    if k is None:
-        name = "tree_fill"
-        rc = _kernels.lib(name).skt_tree_fill_plan(N, nb, buf)
+    name = name or ("tree_fill" if k is None else "sharded_water_fill")
+    buf = (ctypes.c_int * 4)(0, 0, 0, 0)
+    cdll = _kernels.lib(name)
+    if name == "tree_fill":
+        rc = cdll.skt_tree_fill_plan(N, nb, buf)
+    elif name == "sharded_water_fill":
+        rc = cdll.skt_sharded_water_fill_plan(k, N // k, nb, buf)
     else:
-        name = "sharded_water_fill"
-        rc = _kernels.lib(name).skt_sharded_water_fill_plan(k, N // k, nb,
-                                                            buf)
+        rc = getattr(cdll, f"skt_{name}_plan")(N, buf)
     if rc:
         fail(f"{name}: plan query, CUDA error {rc}")
     C, smem, node_smem, shared = buf
-    route = (f"{'shared' if shared else 'global'} route, nodes in "
-             f"{'shared memory' if node_smem else 'device scratch'}")
+    nodes = (f"nodes in {'shared memory' if node_smem else 'device scratch'}")
+    route = nodes if name == "binpack_fill" else (
+        f"{'shared' if shared else 'global'} route, {nodes}")
     return dict(route=route, cluster=C, smem_bytes=smem,
                 ptxas=PTXAS.get(name, "not rebuilt in this run"))
 
@@ -417,6 +422,40 @@ def _launch_text(plan) -> str:
     return (f"cluster of {plan['cluster']} blocks x 1024 threads, "
             f"{plan['smem_bytes']} B dynamic shared memory, {plan['route']};"
             f" ptxas: {plan['ptxas']}")
+
+
+def binpack_keys(tables, state, groups) -> str:
+    """K9's key route on these inputs, group by group as its steps see
+    them (the plain steps fold a copy of `state`): a packed key of at most
+    63 bits and its 8-bit passes, the four components above 63, or no
+    search (q is 0 or the whole capacity, or the group is refused)."""
+    from swarmkit_tpu_torch.ops import placement as pl
+
+    st = _clone(state)
+    out = torch.zeros(tables.mask.shape, dtype=torch.int32,
+                      device=tables.mask.device)
+    flags = torch.zeros(out.shape[0], dtype=torch.int32, device=out.device)
+    N = out.shape[1]
+    widths, skipped = [], 0
+    for g in groups:
+        cap, svc = pl._node_caps_plain(tables, st, g)
+        capsum = int(cap.sum(dtype=torch.int64))
+        q = min(int(tables.n_tasks[g]), capsum)
+        if capsum >= 1 << 31 or q <= 0 or q >= capsum:
+            skipped += 1
+        else:
+            has = cap > 0
+            sv, tot = svc[has].long(), st.totals[has].long()
+            widths.append(1 + int(sv.max() - sv.min()).bit_length()
+                          + int(tot.max() - tot.min()).bit_length()
+                          + (N - 1).bit_length())
+        pl.binpack_fill_step_plain(tables, st, g, out, flags)
+    packed = [w for w in widths if w <= 63]
+    text = (f"packed keys of {min(packed)}-{max(packed)} bits "
+            f"({-(-min(packed) // 8)}-{-(-max(packed) // 8)} passes) on "
+            f"{len(packed)} groups" if packed else "no packed key")
+    return (f"{text}, components on {len(widths) - len(packed)}, no search "
+            f"on {skipped}")
 
 
 def _tables_and_state(args, mask):
@@ -476,8 +515,25 @@ def check_mask(name, p_args, dims):
                 bound_by=b_by), got
 
 
+def fill_bound(N, R, PV, lmax, ops_per_node=None) -> tuple[float, str]:
+    """The bound of one group step over N nodes. Bytes: read the group's
+    rows (mask, penalty, spread ids), read and write the node state
+    (totals, service row, resources, ports), write the counts row.
+    Operations: per node, the caps (2 per resource and port column, ~6
+    more), 3 per spread level for the branch sums, and the leaf's 31-step
+    bisect at 4 per step (the water fill) or `ops_per_node` more
+    (binpack)."""
+    nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
+    extra = 3 * lmax + 31 * 4 if ops_per_node is None else ops_per_node
+    return bound(nbytes, N * (2 * R + 2 * PV + 6 + extra))
+
+
 def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
-               ops_per_node=None, tree=False):
+               ops_per_node=None, launch=None):
+    """K2, K3 or K9 against its plain version over every group from fresh
+    copies of the state; ms a step by CUDA events, the plain version's,
+    the bound; with `launch` (the library) also from a CUDA graph, and how
+    the step launches (K9: its key route on these inputs)."""
     tables, fresh_state = _tables_and_state(p_args, mask)
     G, N, R, PV = dims["G"], dims["N"], dims["R"], dims["PV"]
     s_k, s_p = fresh_state(), fresh_state()
@@ -515,21 +571,16 @@ def check_fill(name, p_args, dims, mask, kernel_step, plain_step, lmax,
     ms = per_launch(kernel_step, 5)
     plain_ms = per_launch(plain_step, 2)
     extra_row, extra_text = {}, ""
-    if tree:  # K3: the graph time and how the step launches
+    if launch:  # the graph time and how the step launches
         g_ms = _graph_fill_ms(kernel_step, tables, fresh_state, G, N)
-        plan = fill_launch(N, int(tables.spread_rank.max()) + 1)
+        plan = fill_launch(N, int(tables.spread_rank.max()) + 1
+                           if lmax else 1, name=launch)
         extra_row = dict(graph_ms=g_ms, launch=plan)
         extra_text = f", graph {g_ms:.4f} ms; {_launch_text(plan)}"
-    # per group step: read the group's rows (mask, penalty, spread ids),
-    # read and write the node state (totals, service row, resources,
-    # ports), write the counts row. Operations: per node, the caps
-    # (2 per resource and port column, ~6 more), 3 per spread level for
-    # the branch sums, and the leaf's 31-step bisect at 4 per step (the
-    # water fill) or `ops_per_node` more (binpack)
-    nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
-    extra = 3 * lmax + 31 * 4 if ops_per_node is None else ops_per_node
-    nops = N * (2 * R + 2 * PV + 6 + extra)
-    b_ms, b_by = bound(nbytes, nops)
+        if launch == "binpack_fill":
+            plan["keys"] = binpack_keys(tables, fresh_state(), range(G))
+            extra_text += f"; {plan['keys']}"
+    b_ms, b_by = fill_bound(N, R, PV, lmax, ops_per_node)
     log(f"[kernels] {kernel_step.__name__} on {name} (N={N}, LMAX={lmax}): "
         f"equal to plain over {G} steps; {ms:.4f} ms/launch vs plain "
         f"{plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}){extra_text}")
@@ -608,10 +659,10 @@ def phase_kernels(seed):
         fail("static_mask differs from its plain version on the grid")
     results["flat_fill_step"] = check_fill(
         "grid", grid_a, gd, grid_mask, pl.flat_fill_step,
-        pl.flat_fill_step_plain, 0)
+        pl.flat_fill_step_plain, 0, launch="flat_fill")
     results["tree_fill_step"] = check_fill(
         "flagship", flag_a, fd, flag_mask, pl.tree_fill_step,
-        pl.tree_fill_step_plain, fd["L"], tree=True)
+        pl.tree_fill_step_plain, fd["L"], launch="tree_fill")
     # K9 on the binpack-encoded grid (the mask is the grid's: binpack only
     # changes the fill). Operations the function needs per node beyond the
     # caps: one lexicographic compare of its 4-key against the boundary's
@@ -623,7 +674,7 @@ def phase_kernels(seed):
     results["binpack_fill_step"] = check_fill(
         "grid binpack", bin_a, check_kernel_args(bin_a), bin_mask,
         pl.binpack_fill_step, pl.binpack_fill_step_plain, 0,
-        ops_per_node=11)
+        ops_per_node=11, launch="binpack_fill")
     rng = np.random.RandomState(seed)
     acks = torch.from_numpy(rng.rand(N_MANAGERS, LOG_LEN) < 0.9999).to(dev)
     results["replay_commit"] = check_replay(
@@ -1319,24 +1370,34 @@ def check_steady_placement(rec):
                 fail(f"{step} differs from its plain version on the "
                      f"{config} steady wave ({what})")
         ms = min(run(getattr(pl, step).real)[1] for _ in range(3))
-        extra = ""
-        if step == "tree_fill_step":  # K3: graph time, launch, a row
-            def steps(st=_clone(state), o=out.clone(), f=flags.clone(),
-                      src=_clone(state)):
-                for a, b in zip(st, src):
-                    a.copy_(b)
-                for g in range(g0, G):
-                    pl.tree_fill_step.real(tables, st, g, o, f)
-            g_ms = graph_ms(steps, iters=1, reps=5) / (G - g0)
-            plan = fill_launch(N, int(tables.spread_rank.max()) + 1)
-            extra = f", graph {g_ms:.4f} ms; {_launch_text(plan)}"
-            rows["tree_fill_step steady"] = dict(
-                ms=ms, graph_ms=g_ms, plain_ms=plain_ms, launch=plan,
-                shape=f"G={G} (groups {g0}-{G - 1}), N={N}, LMAX {L}")
+
+        def steps(st=_clone(state), o=out.clone(), f=flags.clone(),
+                  src=_clone(state), real=getattr(pl, step).real):
+            for a, b in zip(st, src):
+                a.copy_(b)
+            for g in range(g0, G):
+                real(tables, st, g, o, f)
+        g_ms = graph_ms(steps, iters=1, reps=5) / (G - g0)
+        name = step.removesuffix("_step")
+        plan = fill_launch(N, int(tables.spread_rank.max()) + 1 if L else 1,
+                           name=name)
+        extra = f", graph {g_ms:.4f} ms; {_launch_text(plan)}"
+        if name == "binpack_fill":
+            plan["keys"] = binpack_keys(tables, state, range(g0, G))
+            extra += f"; {plan['keys']}"
+        b_ms, b_by = fill_bound(N, tables.need_res.shape[1],
+                                tables.group_ports.shape[1], L,
+                                11 if name == "binpack_fill" else None)
+        row = "steady" if config in ("grid", "flagship tree",
+                                     "grid binpack") else "node_heavy"
+        rows[f"{step} {row}"] = dict(
+            ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, launch=plan,
+            shape=f"{config}: G={G} (groups {g0}-{G - 1}), N={N}, LMAX {L}")
         log(f"[kernels] static_mask and {step} on the {config} steady wave "
             f"(G={G}, N={N}, LMAX {L}, groups {g0}-{G - 1}): equal to "
-            f"plain; {step} {ms:.4f} ms/launch vs plain {plain_ms:.4f} ms"
-            f"{extra}")
+            f"plain; {step} {ms:.4f} ms/launch vs plain {plain_ms:.4f} ms; "
+            f"bound {b_ms:.5f} ms ({b_by}){extra}")
     return rows
 
 
@@ -3648,9 +3709,7 @@ def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
     N = k * n
     R, PV = tables[0].need_res.shape[1], tables[0].group_ports.shape[1]
     lmax = 0 if ops_fill is not None else tables[0].spread_rank.shape[1]
-    nbytes = N * (2 + 4 * lmax + 2 * (4 + 4 + 4 * R + PV)) + 4 * N
-    extra = 3 * lmax + 31 * 4 if ops_fill is None else ops_fill
-    b_ms, b_by = bound(nbytes, N * (2 * R + 2 * PV + 6 + extra))
+    b_ms, b_by = fill_bound(N, R, PV, lmax, ops_fill)
     slots = f", {nb} branch slots" if ops_fill is None else ""
     plan = fill_launch(N, nb, k) if ops_fill is None else None
     launch = "" if plan is None else f"; {_launch_text(plan)}"
@@ -3664,10 +3723,11 @@ def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
                 **({} if plan is None else {"launch": plan}))
 
 
-def check_mesh_tree(p):
-    """K3 at [mesh]'s one-device comparison: the scale-out spread problem
-    (131,072 nodes, LMAX 2) as the one-device cluster_step runs it, every
-    group against the plain version; CUDA events and a CUDA graph."""
+def check_mesh_one_device(p, strategy):
+    """K3 (spread) or K9 (binpack) at [mesh]'s one-device comparison: the
+    scale-out problem (131,072 nodes; spread LMAX 2) as the one-device
+    cluster_step runs it, every group against the plain version; CUDA
+    events and a CUDA graph."""
     from swarmkit_tpu_torch.convert import (
         check_kernel_args,
         kernel_args_from_arrays,
@@ -3679,9 +3739,15 @@ def check_mesh_tree(p):
     args = kernel_args_from_arrays(kernel_args(p), resolve_device())
     dims = check_kernel_args(args)
     mask = pl.static_mask(*[args[i] for i in (0, 1, 2, 3, 5, 6, 7, 4, 20)])
+    if strategy == "binpack":
+        step = getattr(pl.binpack_fill_step, "real", pl.binpack_fill_step)
+        return check_fill("the scale-out binpack, one device", args, dims,
+                          mask, step, pl.binpack_fill_step_plain, 0,
+                          ops_per_node=11, launch="binpack_fill")
     step = getattr(pl.tree_fill_step, "real", pl.tree_fill_step)
     return check_fill("the scale-out spread, one device", args, dims, mask,
-                      step, pl.tree_fill_step_plain, dims["L"], tree=True)
+                      step, pl.tree_fill_step_plain, dims["L"],
+                      launch="tree_fill")
 
 
 def check_mesh_kernels(rec):
@@ -3707,7 +3773,10 @@ def check_mesh_kernels(rec):
         out[name] = _check_sharded_fill(
             name, f"the scale-out {key.split()[1]}", tables, base, nb,
             ops_fill)
-    out["tree_fill_step mesh"] = check_mesh_tree(rec["scale spread"])
+    out["tree_fill_step mesh"] = check_mesh_one_device(rec["scale spread"],
+                                                       "spread")
+    out["binpack_fill_step mesh"] = check_mesh_one_device(
+        rec["scale binpack"], "binpack")
 
     rows = []
     for layout, key in (("managers", "tally managers"), ("log", "tally log")):
@@ -4131,9 +4200,11 @@ def main() -> int:
     results.update(check_mesh_resident_kernels(mesh_res_rec))
     results["sharded_water_fill_step"]["mesh_resident"] = results.pop(
         "sharded_water_fill_step mesh_resident")
-    results["tree_fill_step"]["steady"] = steady_rows[
-        "tree_fill_step steady"]
-    results["tree_fill_step"]["mesh"] = results.pop("tree_fill_step mesh")
+    for key, row in steady_rows.items():
+        name, where = key.split()
+        results[name][where] = row
+    for name in ("tree_fill_step", "binpack_fill_step"):
+        results[name]["mesh"] = results.pop(f"{name} mesh")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -4151,7 +4222,8 @@ def main() -> int:
                                  "graph_ms_quorum_on_card", "host_ns",
                                  "library_host_ns", "host_ns_turns",
                                  "library_graph_ms", "mesh_resident",
-                                 "steady", "mesh", "launch")
+                                 "steady", "node_heavy", "mesh",
+                                 "launch")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

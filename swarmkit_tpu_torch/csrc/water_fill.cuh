@@ -1050,22 +1050,16 @@ struct Launch {
   cudaError_t err;
 };
 
-// Once per kernel and device: allow the shared memory and a
+// For one kernel on the current device: allow the shared memory and a
 // non-portable cluster, and find the largest cluster (16, 8, ... 1) that
 // cudaOccupancyMaxActiveClusters places at the most shared memory.
-template <class Nodes>
-inline Launch launch_limits() {
-  static Launch cache[64];
-  static bool done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return Launch{0, 0, err};
-  if (dev >= 0 && dev < 64 && done[dev]) return cache[dev];
-  const void* kern = (const void*)fill_kernel<Nodes>;
-  int optin = 0;
+inline Launch kernel_limits(const void* kern) {
+  int dev = 0, optin = 0;
   cudaFuncAttributes fa = {};
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
   const int smem_max = optin - (int)fa.sharedSizeBytes;
   if (err == cudaSuccess)
@@ -1096,12 +1090,52 @@ inline Launch launch_limits() {
     }
     cudaGetLastError();  // a refused size is not an error of the step
   }
-  const Launch l{cmax, smem_max, cudaSuccess};
-  if (dev >= 0 && dev < 64) {
+  return Launch{cmax, smem_max, cudaSuccess};
+}
+
+// kernel_limits of K, once per device (a function-local cache of each
+// instantiation: a library instantiates it over a type of its own).
+template <class K>
+inline Launch cached_limits(K* kern) {
+  static Launch cache[64];
+  static bool done[64];
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return Launch{0, 0, err};
+  if (dev >= 0 && dev < 64 && done[dev]) return cache[dev];
+  const Launch l = kernel_limits((const void*)kern);
+  if (l.err == cudaSuccess && dev >= 0 && dev < 64) {
     cache[dev] = l;
     done[dev] = true;
   }
   return l;
+}
+
+template <class Nodes>
+inline Launch launch_limits() {
+  return cached_limits(fill_kernel<Nodes>);
+}
+
+// Launch `kern` on one cluster of C blocks of THREADS threads; returns the
+// CUDA error that refused it.
+template <class... E, class... A>
+inline int launch_cluster(void (*kern)(E...), int C, int smem,
+                          cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The cluster size for Np nodes: about NODES_PER_BLOCK a block, a power of
@@ -1141,21 +1175,7 @@ inline int launch_step(const Nodes& nd, Params pm, long long Np,
   cudaError_t err = plan_step<Nodes>(Np, pm.NB, &p);
   if (err != cudaSuccess) return (int)err;
   if (p.node_smem) pm.gnode = nullptr;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = p.C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(p.C);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = stream;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fill_kernel<Nodes>, nd, pm);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(fill_kernel<Nodes>, p.C, p.smem, stream, nd, pm);
 }
 
 // The plan as four ints (C, smem, node_smem, shared_route) for a caller.

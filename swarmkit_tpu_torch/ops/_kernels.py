@@ -35,6 +35,8 @@ ENTRIES = {
     },
     "flat_fill": {
         "skt_flat_fill_step": [_P] * 15 + [_I] * 4 + [_P],
+        "skt_flat_fill_scratch_i32": [_I],
+        "skt_flat_fill_plan": [_I, _P],
     },
     "tree_fill": {
         "skt_tree_fill_step": [_P] * 17 + [_I] * 5 + [_P],
@@ -60,6 +62,8 @@ ENTRIES = {
     },
     "binpack_fill": {
         "skt_binpack_fill_step": [_P] * 15 + [_I] * 4 + [_P],
+        "skt_binpack_fill_scratch_i32": [_I],
+        "skt_binpack_fill_plan": [_I, _P],
     },
     "unpack_bits": {
         "skt_unpack_bits": [_P] * 2 + [_I] * 3 + [_P],

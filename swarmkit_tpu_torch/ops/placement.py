@@ -432,10 +432,13 @@ def flat_fill_step(t: FillTables, s: FillState, g: int, out,
     G, N, R, PV, _ = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
         raise IndexError(f"group {g} out of range for {G} groups")
-    scratch = torch.empty(2 * N, dtype=torch.int32, device=out.device)
-    rc = _kernels.lib("flat_fill").skt_flat_fill_step(
+    cdll = _kernels.lib("flat_fill")
+    scratch = torch.empty(_scratch_words(cdll.skt_flat_fill_scratch_i32(N),
+                                         "flat_fill_step"),
+                          dtype=torch.int32, device=out.device)
+    rc = cdll.skt_flat_fill_step(
         *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(flags),
-        _ptr(scratch), g, N, R, PV, _kernels.stream_of(out))
+        _ptr(scratch), g, N, R, PV, _kernels.raw_stream(out))
     _kernels.check(rc, "flat_fill_step")
     flat_fill_step.launches += 1
 
@@ -481,10 +484,13 @@ def binpack_fill_step(t: FillTables, s: FillState, g: int, out,
     G, N, R, PV, _ = _check_fill(t, s, out, flags)
     if not 0 <= g < G:
         raise IndexError(f"group {g} out of range for {G} groups")
-    scratch = torch.empty(N, dtype=torch.int32, device=out.device)
-    rc = _kernels.lib("binpack_fill").skt_binpack_fill_step(
+    cdll = _kernels.lib("binpack_fill")
+    scratch = torch.empty(_scratch_words(
+        cdll.skt_binpack_fill_scratch_i32(N), "binpack_fill_step"),
+        dtype=torch.int32, device=out.device)
+    rc = cdll.skt_binpack_fill_step(
         *_group_ptrs(t), *_state_ptrs(s), _ptr(out), _ptr(flags),
-        _ptr(scratch), g, N, R, PV, _kernels.stream_of(out))
+        _ptr(scratch), g, N, R, PV, _kernels.raw_stream(out))
     _kernels.check(rc, "binpack_fill_step")
     binpack_fill_step.launches += 1
 
