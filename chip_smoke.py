@@ -10,8 +10,9 @@ result line) if any phase fails:
   3. kernels  — K1-K4 and K9 against their plain PyTorch versions on the
                 card, at the main path's shapes (10,000 nodes, 20 groups,
                 K9 on the grid problem encoded for binpack; a 5 x 2^20 raft
-                log), exactly equal; times by CUDA events (K2, K3 and K9
-                also from a CUDA graph, with their launch: cluster size,
+                log), exactly equal; times by CUDA events (K1 also from a
+                CUDA graph and by the host clock; K2, K3 and K9 also from
+                a CUDA graph, with their launch: cluster size,
                 shared memory, routes, and ptxas' registers, stack and
                 spills; K9 with its key route on the inputs);
   4. waves    — three scheduler waves of 100,000 tasks (20 services x 5,000)
@@ -163,9 +164,14 @@ result line) if any phase fails:
                 8 shards equal to 1 shard and to the one-device
                 cluster_step, the invariant sweep and the sampled-shard
                 oracle on 2 shards (8 shards twice: the first call of
-                the shapes, then again); then K20-K22 against their plain
+                the shapes, then again); K1 runs once over the 8 shards
+                (sharded_static_mask). Then K20-K22 against their plain
                 versions on the scale-out inputs (CUDA events and a CUDA
-                graph; K20 with its launch), and K3 and K9 on the scale-out
+                graph; K20 and K21 also by the host clock, with their
+                launch, K21 with its key route), the sharded K1 at 8 x
+                16,384 x 16 (events, graph, host clock, beside the
+                per-shard route of 8 one-device calls), and K3 and K9 on
+                the scale-out
                 spread and binpack problems as the one-device cluster_step
                 runs them (131,072 nodes, spread LMAX 2; CUDA events, a
                 CUDA graph, the launch).
@@ -184,16 +190,19 @@ result line) if any phase fails:
                 versions on the phase's recorded inputs (CUDA events and a
                 CUDA graph; K24 in turns with torch.cat + cast and
                 torch.nonzero_static + gather, by CUDA events and by the
-                host clock), and K20 against its plain version on the
-                grid's recorded cold-tick fill (8 x 2,048: CUDA events a
-                step and a CUDA graph).
+                host clock), K20 against its plain version on the grid's
+                recorded cold-tick fill (8 x 2,048: CUDA events a step and
+                a CUDA graph), and the sharded K1 on that tick's recorded
+                mask inputs (8 x 2,048 x 20, as at [mesh]). K1 must launch
+                once a tick (36 ticks).
 
 Each path (phases 4-5, phase 6, phase 8, phase 10, 11, 12, 13, 14, 15, 16
 and 17) runs with every launch count set to 0 just before it, and fails
 unless each of its kernels launched.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. The last
-line of its output is {"ok": true, "device": {...}}.
+line of its output is {"ok": true, "device": {...}}. `--mask-only` times
+K1 alone and stops (see `mask_only`).
 """
 from __future__ import annotations
 
@@ -396,7 +405,8 @@ def fill_launch(N, nb=1, k=None, name=None) -> dict:
     library's ptxas line: the water-fill body (csrc/water_fill.cuh) of K3
     (name None, k None: one shard of N nodes, nb branch slots), K2
     (`flat_fill`: one shard, one slot) or K20 (k shards of N / k); or K9's
-    radix select (`binpack_fill`, csrc/binpack_select.cuh)."""
+    radix select (`binpack_fill`, csrc/binpack_select.cuh; over k shards
+    `sharded_binpack_fill`, K21)."""
     from swarmkit_tpu_torch.ops import _kernels
 
     name = name or ("tree_fill" if k is None else "sharded_water_fill")
@@ -406,13 +416,15 @@ def fill_launch(N, nb=1, k=None, name=None) -> dict:
         rc = cdll.skt_tree_fill_plan(N, nb, buf)
     elif name == "sharded_water_fill":
         rc = cdll.skt_sharded_water_fill_plan(k, N // k, nb, buf)
+    elif name == "sharded_binpack_fill":
+        rc = cdll.skt_sharded_binpack_fill_plan(k, N // k, buf)
     else:
         rc = getattr(cdll, f"skt_{name}_plan")(N, buf)
     if rc:
         fail(f"{name}: plan query, CUDA error {rc}")
     C, smem, node_smem, shared = buf
     nodes = (f"nodes in {'shared memory' if node_smem else 'device scratch'}")
-    route = nodes if name == "binpack_fill" else (
+    route = nodes if "binpack" in name else (
         f"{'shared' if shared else 'global'} route, {nodes}")
     return dict(route=route, cluster=C, smem_bytes=smem,
                 ptxas=PTXAS.get(name, "not rebuilt in this run"))
@@ -482,37 +494,102 @@ def _run_steps(step, tables, state, G, N):
     return out, flags
 
 
+# static_mask's arguments among the KERNEL_ARG_FIELDS
+MASK_ARGS = (0, 1, 2, 3, 5, 6, 7, 4, 20)
+
+
 def check_mask(name, p_args, dims):
     from swarmkit_tpu_torch.ops import placement as pl
 
-    mask_args = [p_args[i] for i in (0, 1, 2, 3, 5, 6, 7, 4, 20)]
+    mask_args = [p_args[i] for i in MASK_ARGS]
     got = pl.static_mask(*mask_args)
     want = pl.static_mask_plain(*mask_args)
     err = int((got.int() - want.int()).abs().max())
     if err:
         fail(f"static_mask differs from its plain version on {name}")
     ms = time_ms(lambda: pl.static_mask(*mask_args), 200)
+    g_ms = graph_ms(lambda: pl.static_mask(*mask_args))
+    ns = host_ns(lambda: pl.static_mask(*mask_args))
     plain_ms = time_ms(lambda: pl.static_mask_plain(*mask_args), 20)
-    G, N, K, PL, C, P, VA, W = (dims[k] for k in (
-        "G", "N", "K", "PL", "C", "P", "VA", "W"))
-    nbytes = (N * (1 + 4 * K + 8 + PL) + G * (12 * C + 8 * P + PL)
-              + 4 * G * VA * W + 2 * G * N)
-    # operations this run's rows need per node: a gather, compare and AND
-    # per real constraint; ~5 per valid platform row; 2 per required
-    # plugin; 3 per volume-topology segment; 3 for ready/extra/store
-    _, _, _, _, cons, plat, plugs, _, vt = mask_args
+    G, N = dims["G"], dims["N"]
+    b_ms, b_by = mask_bound(mask_args, 1, G, N)
+    log(f"[kernels] static_mask on {name} ({G}x{N}): equal to plain; "
+        f"{ms:.4f} ms, graph {g_ms:.5f} ms, host ns a call {ns:.0f} vs "
+        f"plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, graph_ms=g_ms, host_ns=ns), got
+
+
+def mask_bound(mask_args, k, G, n) -> tuple[float, str]:
+    """The bound of K1 over k shards of n nodes (k = 1: one device) on
+    these rows. Bytes: each shard's node tables and extra mask read once,
+    its mask written once, the group rows read once. Operations this
+    run's rows need per node: a gather, compare and AND per real
+    constraint; ~5 per valid platform row; 2 per required plugin; 3 per
+    volume-topology segment; 3 a group for ready/extra/store."""
+    _, node_val, _, node_plugins, cons, plat, plugs, _, vt = mask_args
+    if isinstance(node_val, list):
+        node_val, node_plugins = node_val[0], node_plugins[0]
+    K, PL = node_val.shape[1], node_plugins.shape[1]
+    C, P = cons.shape[1], plat.shape[1]
+    VA, W = vt.shape[1], vt.shape[2]
+    nbytes = (k * n * (1 + 4 * K + 8 + PL) + G * (12 * C + 8 * P + PL)
+              + 4 * G * VA * W + 2 * k * G * n)
     row_ok = (vt[:, :, :1] >= 0) & (vt[:, :, :1] < 4)
     n_terms = (3 * int((cons[:, :, 0] >= 0).sum())
                + 5 * int((plat[:, :, 0] > -2).sum())
                + 2 * int(plugs.sum())
                + 3 * int((row_ok & (vt[:, :, 1::2] >= 0)).sum()))
-    nops = N * n_terms + 3 * G * N
-    b_ms, b_by = bound(nbytes, nops)
-    log(f"[kernels] static_mask on {name} ({G}x{N}): equal to plain; "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
-        f"({b_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by), got
+    return bound(nbytes, k * n * n_terms + 3 * k * G * n)
+
+
+def _shard_mask_args(args, b):
+    return [a[b] if isinstance(a, list) else a for a in args]
+
+
+def check_sharded_mask(where, args):
+    """K1 over every shard in one launch (`sharded_static_mask`) against
+    its plain version (static_mask_plain shard by shard) on `args`, the
+    main path's recorded inputs (node-axis fields k shard tensors); ms a
+    call by CUDA events, from a CUDA graph and by the host clock, beside
+    the per-shard route (k one-device static_mask calls, the launch loops'
+    route before the sharded entry). Returns the kernels-line row."""
+    from swarmkit_tpu_torch.ops import placement as pl
+
+    k = len(args[0])
+    G, n = args[7][0].shape
+    shards = [_shard_mask_args(args, b) for b in range(k)]
+    got = pl.sharded_static_mask(*args)
+    want = [pl.static_mask_plain(*a) for a in shards]
+    err = max(int((a.int() - b.int()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    if err or len(got) != k:
+        fail(f"sharded_static_mask differs from its plain version on {where}")
+
+    def sharded():
+        return pl.sharded_static_mask(*args)
+
+    def per_shard():
+        return [pl.static_mask(*a) for a in shards]
+
+    row = {}
+    for key, fn in (("sharded", sharded), ("per_shard", per_shard)):
+        row[key] = dict(ms=time_ms(fn, 200), graph_ms=graph_ms(fn),
+                        host_ns=host_ns(fn))
+    plain_ms = time_ms(lambda: [pl.static_mask_plain(*a) for a in shards],
+                       10)
+    b_ms, b_by = mask_bound(args, k, G, n)
+    s, p = row["sharded"], row["per_shard"]
+    log(f"[kernels] sharded_static_mask on {where} ({k} shards x {G}x{n}): "
+        f"equal to plain; one launch {s['ms']:.4f} ms, graph "
+        f"{s['graph_ms']:.5f} ms, host ns a call {s['host_ns']:.0f}; the "
+        f"per-shard route ({k} static_mask calls) {p['ms']:.4f} ms, graph "
+        f"{p['graph_ms']:.5f} ms, host ns {p['host_ns']:.0f}; plain "
+        f"{plain_ms:.4f} ms; library none; bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=s["ms"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_ms=s["graph_ms"], host_ns=s["host_ns"],
+                per_shard=p, shape=f"{k}x{G}x{n}")
 
 
 def fill_bound(N, R, PV, lmax, ops_per_node=None) -> tuple[float, str]:
@@ -3644,6 +3721,61 @@ def _step_ms(step, tables, fresh, G, reps):
     return total / (reps * G)
 
 
+def _step_host_ns(step, tables, fresh, G, reps=5):
+    """Host ns per group step: the G steps from fresh states by the host
+    clock (the card synchronised before and after), over `reps` runs."""
+    total = 0
+    for _ in range(reps):
+        states = fresh()
+        outs = [torch.zeros((G, t.mask.shape[1]), dtype=torch.int32,
+                            device=t.mask.device) for t in tables]
+        flags = torch.zeros(G, dtype=torch.int32, device=tables[0].mask.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for g in range(G):
+            step(tables, states, g, outs, flags)
+        torch.cuda.synchronize()
+        total += time.perf_counter_ns() - t0
+    return total / (reps * G)
+
+
+def _loop_ms(strategy, tables, fresh, G, nb, reps=5):
+    """Mean ms a step of the launch loop as the main path runs it
+    (`parallel.fill.sharded_fill`: its counts and flags, then one step a
+    group), from fresh states: (CUDA events, host ns) over `reps` runs."""
+    from swarmkit_tpu_torch.parallel import fill
+
+    ev, ns = 0.0, 0
+    for _ in range(reps):
+        states = fresh()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter_ns()
+        e0.record()
+        fill.sharded_fill(tables, states, strategy, nb)
+        e1.record()
+        e1.synchronize()
+        ns += time.perf_counter_ns() - t0
+        ev += e0.elapsed_time(e1)
+    return ev / (reps * G), ns / (reps * G)
+
+
+def _joined(tables, states):
+    """One-device FillTables and FillState of the shards joined on the node
+    axis (the group-side tables as they are)."""
+    from swarmkit_tpu_torch.ops.placement import FillState, FillTables
+
+    axis = {"mask": 1, "penalty": 1, "spread_rank": 2}
+    t = FillTables(*(torch.cat([getattr(x, f) for x in tables], axis[f])
+                     if f in axis else getattr(tables[0], f)
+                     for f in FillTables._fields))
+    st = FillState(*(torch.cat([getattr(x, f) for x in states],
+                               1 if f == "svc_counts" else 0)
+                     for f in FillState._fields))
+    return t, st
+
+
 def _graph_step_ms(step, tables, fresh, G, reps=5):
     """Mean device ms per group step from a CUDA graph of the G steps and
     the copies that restore the state before them (the steps fold it in
@@ -3669,10 +3801,12 @@ def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
     """K20 (spread, topology), or K21 (binpack: `ops_fill` its operations a
     node), against its plain version over every group of `tables` from
     fresh copies of the shard states `base`; fails unless the counts, the
-    carries and the flags agree. Then ms a step by CUDA events and from a
-    CUDA graph (a cooperative launch can be captured), the plain
-    version's, and the bound from these shapes. Returns the kernels-line
-    row."""
+    carries and the flags agree. Then ms a step by CUDA events, from a
+    CUDA graph and by the host clock, a call of the wrapper alone and in
+    the launch loop as the main path runs it (K21's loop checks its
+    inputs once), the plain version's, the bound from these shapes, and
+    how the step launches (K21 also its key route on these inputs).
+    Returns the kernels-line row."""
     from swarmkit_tpu_torch.ops.placement import FillState
     from swarmkit_tpu_torch.parallel import fill
 
@@ -3704,6 +3838,10 @@ def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
     _step_ms(step, tables, fresh, G, 1)                # warm-up
     ms = _step_ms(step, tables, fresh, G, 5)
     g_ms = _graph_step_ms(step, tables, fresh, G)
+    ns = _step_host_ns(step, tables, fresh, G)
+    _loop_ms(0 if ops_fill is None else 1, tables, fresh, G, nb, 1)
+    loop_ms, loop_ns = _loop_ms(0 if ops_fill is None else 1, tables, fresh,
+                                G, nb)
     plain_ms = _step_ms(plain, tables, fresh, G, 1)
     k, n = len(tables), tables[0].mask.shape[1]
     N = k * n
@@ -3711,16 +3849,23 @@ def _check_sharded_fill(name, where, tables, base, nb, ops_fill=None):
     lmax = 0 if ops_fill is not None else tables[0].spread_rank.shape[1]
     b_ms, b_by = fill_bound(N, R, PV, lmax, ops_fill)
     slots = f", {nb} branch slots" if ops_fill is None else ""
-    plan = fill_launch(N, nb, k) if ops_fill is None else None
-    launch = "" if plan is None else f"; {_launch_text(plan)}"
+    if ops_fill is None:
+        plan = fill_launch(N, nb, k)
+    else:
+        plan = fill_launch(N, k=k, name="sharded_binpack_fill")
+        plan["keys"] = binpack_keys(*_joined(tables, fresh()), range(G))
+    launch = f"; {_launch_text(plan)}" + (
+        f"; {plan['keys']}" if "keys" in plan else "")
     log(f"[kernels] {name} on {where} ({k} shards x {n} nodes, LMAX "
         f"{lmax}{slots}): equal to plain over {G} steps; {ms:.4f} ms/launch, "
-        f"graph {g_ms:.4f} ms vs plain {plain_ms:.4f} ms; library none; "
-        f"bound {b_ms:.5f} ms ({b_by}){launch}")
+        f"graph {g_ms:.4f} ms, host ns a step {ns:.0f}; in the launch loop "
+        f"(sharded_fill) {loop_ms:.4f} ms a step, host ns {loop_ns:.0f}; vs "
+        f"plain {plain_ms:.4f} ms; library none; bound {b_ms:.5f} ms "
+        f"({b_by}){launch}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, graph_ms=g_ms,
-                shape=f"{k}x{n}, G={G}, LMAX {lmax}",
-                **({} if plan is None else {"launch": plan}))
+                bound_by=b_by, library_ms=None, graph_ms=g_ms, host_ns=ns,
+                loop_ms=loop_ms, loop_host_ns=loop_ns,
+                shape=f"{k}x{n}, G={G}, LMAX {lmax}", launch=plan)
 
 
 def check_mesh_one_device(p, strategy):
@@ -3751,12 +3896,12 @@ def check_mesh_one_device(p, strategy):
 
 
 def check_mesh_kernels(rec):
-    """K20-K22 against their plain versions on the [mesh] phase's
-    scale-out inputs (131,072 nodes over 8 shards, 16 groups; the
-    manager-axis 8 x 2^20 acks; the log-split 5 x 2^15 acks); times by
-    CUDA events per launch, and from a CUDA graph (a cooperative launch
-    can be captured); bound from this run's shapes. No single PyTorch call
-    computes them: the library time is none."""
+    """K20-K22 and the sharded K1 against their plain versions on the
+    [mesh] phase's scale-out inputs (131,072 nodes over 8 shards, 16
+    groups; the manager-axis 8 x 2^20 acks; the log-split 5 x 2^15 acks);
+    times by CUDA events per launch, from a CUDA graph and (K1, K20, K21)
+    by the host clock; bound from this run's shapes. No single PyTorch
+    call computes them: the library time is none."""
     from swarmkit_tpu_torch.device import resolve_device
     from swarmkit_tpu_torch.ops import raft_replay as rr
     from swarmkit_tpu_torch.parallel import fill, mesh
@@ -3773,6 +3918,9 @@ def check_mesh_kernels(rec):
         out[name] = _check_sharded_fill(
             name, f"the scale-out {key.split()[1]}", tables, base, nb,
             ops_fill)
+        if ops_fill is None:      # K1 over the 8 shards: 8 x 16,384 x 16
+            out["sharded_static_mask"] = check_sharded_mask(
+                "the scale-out spread", [args[i] for i in MASK_ARGS])
     out["tree_fill_step mesh"] = check_mesh_one_device(rec["scale spread"],
                                                        "spread")
     out["binpack_fill_step mesh"] = check_mesh_one_device(
@@ -3874,18 +4022,19 @@ def phase_mesh_resident(seed, rec, ref):
 
 
 def check_mesh_resident_kernels(rec):
-    """K23, K24 and K20 against their plain versions on the inputs
-    recorded in [mesh_resident] (the grid's churn tick; a grid tick's dense
-    pull and a node-heavy tick's sparse pull; the grid's cold-tick fill);
-    times by CUDA events and from a CUDA graph, K24's in turns with its
-    library calls by both clocks."""
+    """K23, K24, K20 and the sharded K1 against their plain versions on
+    the inputs recorded in [mesh_resident] (the grid's churn tick; a grid
+    tick's dense pull and a node-heavy tick's sparse pull; the grid's
+    cold-tick fill and mask); times by CUDA events and from a CUDA graph,
+    K24's in turns with its library calls by both clocks."""
     from swarmkit_tpu_torch.ops import resident_mesh as rm
     from swarmkit_tpu_torch.parallel import fill
 
     out = {}
     missing = [k for k in ("sharded_delta_scatter",
                            "sharded_counts_pull dense",
-                           "sharded_counts_pull sparse", "sharded_fill")
+                           "sharded_counts_pull sparse", "sharded_fill",
+                           "sharded_static_mask")
                if k not in rec.calls]
     if missing:
         fail(f"[mesh_resident] no call recorded: {missing}")
@@ -3995,12 +4144,17 @@ def check_mesh_resident_kernels(rec):
     out["sharded_water_fill_step mesh_resident"] = _check_sharded_fill(
         "sharded_water_fill_step", "the mesh tick's grid", tables, states,
         nb)
+    # K1 over the 8 shards of the grid's cold tick: 8 x 2,048 x 20
+    out["sharded_static_mask mesh_resident"] = check_sharded_mask(
+        "the mesh tick's grid", list(rec.calls["sharded_static_mask"]))
     return out
 
 
 SOURCES = {
     "static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
                     "swarmkit_tpu/ops/placement.py:67"),
+    "sharded_static_mask": ("swarmkit_tpu_torch/csrc/static_mask.cu",
+                            "swarmkit_tpu/ops/placement.py:67"),
     "flat_fill_step": ("swarmkit_tpu_torch/csrc/flat_fill.cu",
                        "swarmkit_tpu/ops/placement.py:173"),
     "tree_fill_step": ("swarmkit_tpu_torch/csrc/tree_fill.cu",
@@ -4069,9 +4223,10 @@ PATHS = {"waves+flagship": ("static_mask", "flat_fill_step",
                        "diff_compact"),
          "alloc": ("grant_order",),
          "replicated": ("replica_slot_state",),
-         "mesh": ("static_mask", "sharded_water_fill_step",
-                  "sharded_binpack_fill_step", "sharded_replay_tally"),
-         "mesh_resident": ("static_mask", "sharded_water_fill_step",
+         "mesh": ("static_mask", "sharded_static_mask",
+                  "sharded_water_fill_step", "sharded_binpack_fill_step",
+                  "sharded_replay_tally"),
+         "mesh_resident": ("sharded_static_mask", "sharded_water_fill_step",
                            "svc_matrix_build", "sharded_delta_scatter",
                            "sharded_counts_pull")}
 
@@ -4090,12 +4245,83 @@ def drive(path, wrappers, run) -> dict:
     return launches
 
 
+def mask_only(seed) -> None:
+    """K1 alone (`--mask-only`), on inputs of the shapes the full run
+    records: the flagship's 20 x 10,000 (the same problem as [kernels]),
+    [mesh]'s scale-out over 8 shards of 16,384 with 16 groups (the same
+    problem as [mesh]), and a 16,384-node grid with 20 groups over 8
+    shards of 2,048 (the mesh tick's shape; the tick pads 10,000 nodes
+    with phantoms). The one-device call, the per-shard route (k one-device
+    calls) and, where the port has it, the sharded call, each by CUDA
+    events, from a CUDA graph and by the host clock. It needs only
+    `static_mask` and the mesh's `shard_problem`, so one chip call can
+    time a parent revision and its change side by side; prints one JSON
+    line {"mask_only": {...}}."""
+    from swarmkit_tpu_torch.convert import kernel_args_from_arrays
+    from swarmkit_tpu_torch.device import resolve_device
+    from swarmkit_tpu_torch.models.cluster_step import (
+        example_cluster,
+        synth_shard_cluster,
+    )
+    from swarmkit_tpu_torch.ops import _kernels
+    from swarmkit_tpu_torch.ops import placement as pl
+    from swarmkit_tpu_torch.parallel import mesh
+    from swarmkit_tpu_torch.scheduler.encode import encode, kernel_args
+
+    dev = resolve_device()
+    _kernels.build(["static_mask"])
+    flag = kernel_args_from_arrays(kernel_args(encode(*example_cluster(
+        N_NODES, N_GROUPS, TASKS_PER_GROUP, seed))), dev)
+    one = [flag[i] for i in MASK_ARGS]
+    m = mesh.make_mesh(MESH_SHARDS)
+    scale, _ = synth_shard_cluster(
+        SCALE_NODES, MESH_SHARDS, groups_per_shard=SCALE_GPS,
+        tasks_per_group=SCALE_TASKS, seed=seed, lmax=2, strategy="spread")
+    grid = encode(grid_nodes(random.Random(seed + 1), 2_048 * MESH_SHARDS),
+                  grid_groups(100))
+
+    def timed(fn):
+        return dict(ms=time_ms(fn, 200), graph_ms=graph_ms(fn),
+                    host_ns=host_ns(fn))
+
+    out = {f"one {N_GROUPS}x{N_NODES}": timed(lambda: pl.static_mask(*one))}
+    for p in (scale, grid):
+        sharded = mesh.shard_problem(p, m)[0]
+        args = [sharded[i] for i in MASK_ARGS]
+        G, n = args[7][0].shape
+        shape = f"{MESH_SHARDS}x{G}x{n}"
+        shards = [_shard_mask_args(args, b) for b in range(MESH_SHARDS)]
+        want = [pl.static_mask_plain(*a) for a in shards]
+        if not all(torch.equal(pl.static_mask(*a), w)
+                   for a, w in zip(shards, want)):
+            fail(f"static_mask differs from its plain version at {shape}")
+        out[f"per_shard {shape}"] = timed(
+            lambda: [pl.static_mask(*a) for a in shards])
+        if hasattr(pl, "sharded_static_mask"):
+            if not all(torch.equal(a, w) for a, w in zip(
+                    pl.sharded_static_mask(*args), want)):
+                fail(f"sharded_static_mask differs from its plain version "
+                     f"at {shape}")
+            out[f"sharded {shape}"] = timed(
+                lambda: pl.sharded_static_mask(*args))
+    for key, row in out.items():
+        log(f"[mask] {key}: {row['ms']:.4f} ms, graph "
+            f"{row['graph_ms']:.5f} ms, host ns a call {row['host_ns']:.0f}")
+    print(json.dumps({"mask_only": out}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    seed = ap.parse_args().seed
+    ap.add_argument("--mask-only", action="store_true",
+                    help="time K1 alone (see mask_only) and stop")
+    opts = ap.parse_args()
+    seed = opts.seed
     t_start = time.perf_counter()
     kind, count = phase_device()
+    if opts.mask_only:
+        mask_only(seed)
+        return 0
     try:
         from swarmkit_tpu_torch.ops import alloc as ga
         from swarmkit_tpu_torch.ops import bitpack as bp
@@ -4111,6 +4337,7 @@ def main() -> int:
     results, flag_p = phase_kernels(seed)
 
     wrappers = {"static_mask": pl.static_mask,
+                "sharded_static_mask": pl.sharded_static_mask,
                 "flat_fill_step": pl.flat_fill_step,
                 "tree_fill_step": pl.tree_fill_step,
                 "replay_commit": rr.replay_commit,
@@ -4193,13 +4420,19 @@ def main() -> int:
         "sharded_counts_pull " + ("dense" if len(a) == 4 else "sparse")))
     mesh_res_rec.wrap(rm, "sharded_fill", key=lambda a: (
         "sharded_fill" if a[2] == 0 else None))
+    mesh_res_rec.wrap(rm, "sharded_static_mask")
     by_path["mesh_resident"] = drive(
         "mesh_resident", wrappers,
         lambda: phase_mesh_resident(seed, mesh_res_rec, steady_ref))
     del steady_ref
+    ticks = 4 * (STEADY_WAVES + 1)      # 2 configurations x async, sync
+    if by_path["mesh_resident"]["sharded_static_mask"] != ticks:
+        fail(f"[mesh_resident] K1 launched "
+             f"{by_path['mesh_resident']['sharded_static_mask']} times, not "
+             f"once in each of the {ticks} ticks")
     results.update(check_mesh_resident_kernels(mesh_res_rec))
-    results["sharded_water_fill_step"]["mesh_resident"] = results.pop(
-        "sharded_water_fill_step mesh_resident")
+    for name in ("sharded_water_fill_step", "sharded_static_mask"):
+        results[name]["mesh_resident"] = results.pop(f"{name} mesh_resident")
     for key, row in steady_rows.items():
         name, where = key.split()
         results[name][where] = row
@@ -4223,7 +4456,8 @@ def main() -> int:
                                  "library_host_ns", "host_ns_turns",
                                  "library_graph_ms", "mesh_resident",
                                  "steady", "node_heavy", "mesh",
-                                 "launch")
+                                 "launch", "per_shard", "loop_ms",
+                                 "loop_host_ns")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

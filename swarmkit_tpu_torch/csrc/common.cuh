@@ -18,11 +18,6 @@ constexpr int32_t UNLIMITED = 1 << 30;     // ops/placement.py UNLIMITED
 constexpr int32_t PENALTY_BASE = 1 << 20;  // scheduler/spread.py PENALTY_BASE
 constexpr int POUR_BITS = 30;              // 31 bisect steps, hi = 1 << 30
 constexpr int32_t SEC_PAD = 1 << 30;       // secondary key off the boundary
-// One block per group step. The fill kernels declare it as
-// __launch_bounds__(FILL_THREADS, 1): with the bound on threads alone ptxas
-// held K2 to 32 registers and spilled in its bisection loops (68 bytes of
-// spill stores); with one resident block it takes the 64 a thread may have.
-constexpr int FILL_THREADS = 1024;
 constexpr long long I32_LIMIT = 1LL << 31;  // capacity sums refused from here
 
 // floor(a / b) for b > 0 (jnp's `//` on int32)
@@ -32,7 +27,7 @@ __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
   return q;
 }
 
-// Block-wide reductions. `red` is a __shared__ scratch of 32 slots; every
+// A block-wide sum. `red` is a __shared__ scratch of 32 slots; every
 // thread of the block must call, and every thread gets the result. The
 // leading barrier protects `red` from the previous call's readers.
 template <typename T>
@@ -46,29 +41,6 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
   if (w == 0) {
     T r = lane < nw ? red[lane] : T(0);
     for (int o = 16; o > 0; o >>= 1) r += __shfl_down_sync(0xffffffffu, r, o);
-    if (lane == 0) red[0] = r;
-  }
-  __syncthreads();
-  return red[0];
-}
-
-template <typename T>
-__device__ __forceinline__ T block_max(T v, T* red) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    T u = __shfl_down_sync(0xffffffffu, v, o);
-    v = u > v ? u : v;
-  }
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    T r = lane < nw ? red[lane] : red[0];
-    for (int o = 16; o > 0; o >>= 1) {
-      T u = __shfl_down_sync(0xffffffffu, r, o);
-      r = u > r ? u : r;
-    }
     if (lane == 0) red[0] = r;
   }
   __syncthreads();

@@ -32,6 +32,7 @@ _I = ctypes.c_int
 ENTRIES = {
     "static_mask": {
         "skt_static_mask": [_P] * 10 + [_I] * 8 + [_P],
+        "skt_sharded_static_mask": [_P] * 6 + [_I] * 9 + [_P],
     },
     "flat_fill": {
         "skt_flat_fill_step": [_P] * 15 + [_I] * 4 + [_P],
@@ -105,8 +106,10 @@ ENTRIES = {
         "skt_sharded_water_fill_plan": [_I] * 3 + [_P],
     },
     "sharded_binpack_fill": {
-        "skt_sharded_binpack_fill_step": [_P] * 10 + [_I] * 5 + [_P],
+        "skt_sharded_binpack_fill_step": [_P] * 9 + [_I] * 5 + [_P],
+        "skt_sharded_binpack_fill_scratch_i32": [_I, _I],
         "skt_sharded_binpack_fill_max_shards": [],
+        "skt_sharded_binpack_fill_plan": [_I, _I, _P],
     },
     "sharded_replay_tally": {
         "skt_sharded_replay_tally": [_P] * 6 + [_I] * 4 + [_P],

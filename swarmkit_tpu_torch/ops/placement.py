@@ -13,7 +13,10 @@ next group sees. The counts are bit-identical to the greedy CPU oracle
 Four kernels carry it, each a hand-written CUDA kernel (csrc/) with its
 plain PyTorch version beside its wrapper:
 
-  * `static_mask`       (K1, csrc/static_mask.cu)  — the mask;
+  * `static_mask`       (K1, csrc/static_mask.cu)  — the mask
+                                                     (`sharded_static_mask`:
+                                                     k node shards in one
+                                                     launch);
   * `flat_fill_step`    (K2, csrc/flat_fill.cu)    — a spread step, no
                                                      spread levels;
   * `tree_fill_step`    (K3, csrc/tree_fill.cu)    — a spread step with
@@ -44,6 +47,7 @@ topology, which the encoder turns into an extra outer spread level),
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -144,14 +148,11 @@ def static_mask_plain(ready, node_val, node_plat, node_plugins, constraints,
     return out
 
 
-def static_mask(ready, node_val, node_plat, node_plugins, constraints,
-                plat_req, req_plugins, extra_mask, vol_topo):
-    """Eligibility mask[G, N]: the plain version for CPU tensors, kernel K1
-    (csrc/static_mask.cu) for CUDA tensors."""
-    args = (ready, node_val, node_plat, node_plugins, constraints, plat_req,
-            req_plugins, extra_mask, vol_topo)
-    if _kernels.route("placement", *args) == "plain":
-        return static_mask_plain(*args)
+def _mask_dims(args) -> tuple[int, ...]:
+    """Shapes, dtypes and layout of K1's inputs (`static_mask`'s argument
+    order), each tensor by `_expect`. Returns (G, N, K, PL, C, P, VA, W)."""
+    (ready, node_val, node_plat, node_plugins, constraints, plat_req,
+     req_plugins, extra_mask, vol_topo) = args
     G, N = extra_mask.shape
     K, PL = node_val.shape[1], node_plugins.shape[1]
     C, P = constraints.shape[1], plat_req.shape[1]
@@ -167,6 +168,18 @@ def static_mask(ready, node_val, node_plat, node_plugins, constraints,
             (extra_mask, "extra_mask", torch.bool, (G, N)),
             (vol_topo, "vol_topo", torch.int32, (G, VA, W))):
         _expect(t, name, dtype, shape)
+    return G, N, K, PL, C, P, VA, W
+
+
+def static_mask(ready, node_val, node_plat, node_plugins, constraints,
+                plat_req, req_plugins, extra_mask, vol_topo):
+    """Eligibility mask[G, N]: the plain version for CPU tensors, kernel K1
+    (csrc/static_mask.cu) for CUDA tensors."""
+    args = (ready, node_val, node_plat, node_plugins, constraints, plat_req,
+            req_plugins, extra_mask, vol_topo)
+    if _kernels.route("placement", *args) == "plain":
+        return static_mask_plain(*args)
+    G, N, K, PL, C, P, VA, W = _mask_dims(args)
     out = torch.empty((G, N), dtype=torch.bool, device=extra_mask.device)
     if G * N == 0:
         return out
@@ -174,13 +187,124 @@ def static_mask(ready, node_val, node_plat, node_plugins, constraints,
         raise ValueError("node_val needs at least one key column")
     rc = _kernels.lib("static_mask").skt_static_mask(
         *(_ptr(t) for t in args), _ptr(out), G, N, K, PL, C, P, VA, W,
-        _kernels.stream_of(out))
+        _kernels.raw_stream(out))
     _kernels.check(rc, "static_mask")
     static_mask.launches += 1
     return out
 
 
 static_mask.launches = 0
+
+
+def _fits(x, dtype, shape) -> bool:
+    return x.dtype == dtype and x.shape == shape and x.is_contiguous()
+
+
+def _sharded_mask_dims(ready, node_val, node_plat, node_plugins,
+                       constraints, plat_req, req_plugins, extra_mask,
+                       vol_topo):
+    """The checks of `static_mask` on every shard, in one pass: the same
+    conditions (and one shard width), each tensor read once, the
+    group-side tables once for all shards. Whatever it does not accept
+    goes through `_mask_dims` shard by shard, in the order of a loop of
+    `static_mask` calls, which raises its error as before; shards that
+    each pass but differ in width raise ValueError. Returns ((k, G, n, K,
+    PL, C, P, VA, W), rows): rows the five data pointers of each shard,
+    in the order of the kernel's pointer table."""
+    k = len(ready)
+    rows = None
+    try:
+        G, n = extra_mask[0].shape
+        K, PL = node_val[0].shape[1], node_plugins[0].shape[1]
+        C, P = constraints.shape[1], plat_req.shape[1]
+        VA, W = vol_topo.shape[1], vol_topo.shape[2]
+        i32, b8 = torch.int32, torch.bool
+        if (len(node_val) == len(node_plat) == len(node_plugins)
+                == len(extra_mask) == k
+                and _fits(constraints, i32, (G, C, 3))
+                and _fits(plat_req, i32, (G, P, 2))
+                and _fits(req_plugins, b8, (G, PL))
+                and _fits(vol_topo, i32, (G, VA, W))):
+            rows = []
+            sn, snk, sn2, snp, sgn = (n,), (n, K), (n, 2), (n, PL), (G, n)
+            for r, v, pf, pg, e in zip(ready, node_val, node_plat,
+                                       node_plugins, extra_mask):
+                if not (r.dtype == b8 and v.dtype == i32
+                        and pf.dtype == i32 and pg.dtype == b8
+                        and e.dtype == b8 and r.shape == sn
+                        and v.shape == snk and pf.shape == sn2
+                        and pg.shape == snp and e.shape == sgn
+                        and r.is_contiguous() and v.is_contiguous()
+                        and pf.is_contiguous() and pg.is_contiguous()
+                        and e.is_contiguous()):
+                    rows = None
+                    break
+                rows.append((r.data_ptr(), v.data_ptr(), pf.data_ptr(),
+                             pg.data_ptr(), e.data_ptr()))
+    except (AttributeError, IndexError, TypeError, ValueError):
+        rows = None
+    if rows is not None:
+        if G * n and K == 0:
+            raise ValueError("node_val needs at least one key column")
+        return (k, G, n, K, PL, C, P, VA, W), rows
+    widths = set()
+    for b in range(k):
+        Gb, Nb, Kb, *_ = _mask_dims((
+            ready[b], node_val[b], node_plat[b], node_plugins[b],
+            constraints, plat_req, req_plugins, extra_mask[b], vol_topo))
+        if Gb * Nb and Kb == 0:
+            raise ValueError("node_val needs at least one key column")
+        widths.add(Nb)
+    lengths = [len(x) for x in (node_val, node_plat, node_plugins,
+                                extra_mask)]
+    raise ValueError(f"{k} shards of widths {sorted(widths)}, node lists "
+                     f"of lengths {lengths}: expected one width and one "
+                     "tensor a shard in each list")
+
+
+def sharded_static_mask(ready, node_val, node_plat, node_plugins,
+                        constraints, plat_req, req_plugins, extra_mask,
+                        vol_topo):
+    """The eligibility masks of k node shards: `ready`, `node_val`,
+    `node_plat`, `node_plugins` and `extra_mask` are lists of k per-shard
+    tensors (one width n), the group-side tables one tensor each (the same
+    `extra_mask` tensor may stand for several shards). Returns k masks
+    bool[G, n]. For CPU tensors, `static_mask` shard by shard (the plain
+    version); for CUDA tensors kernel K1 (csrc/static_mask.cu) over every
+    shard in one launch, the masks the k views of one bool[k, G, n]."""
+    k = len(ready)
+    if _kernels.route("placement", *ready, *node_val, *node_plat,
+                      *node_plugins, *extra_mask, constraints, plat_req,
+                      req_plugins, vol_topo) == "plain":
+        return [static_mask(ready[b], node_val[b], node_plat[b],
+                            node_plugins[b], constraints, plat_req,
+                            req_plugins, extra_mask[b], vol_topo)
+                for b in range(k)]
+    if k == 0:
+        return []
+    (k, G, n, K, PL, C, P, VA, W), rows = _sharded_mask_dims(
+        ready, node_val, node_plat, node_plugins, constraints, plat_req,
+        req_plugins, extra_mask, vol_topo)
+    dev = constraints.device
+    out = torch.empty((k, G, n), dtype=torch.bool, device=dev)
+    if G * n == 0:
+        return list(out.unbind(0))
+    table = _kernels.pointer_table(rows, dev)
+    rc = _sharded_mask_entry()(
+        table.data_ptr(), _ptr(constraints), _ptr(plat_req),
+        _ptr(req_plugins), _ptr(vol_topo), out.data_ptr(), k, G, n, K, PL,
+        C, P, VA, W, _kernels.raw_stream(out))
+    _kernels.check(rc, "sharded_static_mask")
+    sharded_static_mask.launches += 1
+    return list(out.unbind(0))
+
+
+sharded_static_mask.launches = 0
+
+
+@functools.cache
+def _sharded_mask_entry():
+    return _kernels.lib("static_mask").skt_sharded_static_mask
 
 
 # ------------------------------------------------------- the group step

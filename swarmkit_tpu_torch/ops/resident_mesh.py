@@ -20,7 +20,7 @@ A tick runs, on the carry itself:
   * one K23 launch that sets the delta rows (the encoder's dirty rows and
     the `after_apply` corrections, by their global row index) into their
     shards;
-  * K1 (`static_mask`) once per shard, then one K20
+  * one K1 launch over every shard (`sharded_static_mask`), then one K20
     (`sharded_water_fill_step`, spread and topology) or K21
     (`sharded_binpack_fill_step`, binpack) launch per group, which fold the
     counts into every shard's carry in place;
@@ -49,7 +49,7 @@ from ..parallel.fill import sharded_fill
 from ..parallel.mesh import NODE_AXIS, Mesh, make_mesh
 from ..scheduler.encode import EncodedProblem, IncrementalEncoder, _bucket
 from . import _kernels
-from .placement import FillState, FillTables, _expect, static_mask
+from .placement import FillState, FillTables, _expect, sharded_static_mask
 from .resident import (
     _I32_LIMIT,
     _PLACEHOLDER_FALSE,
@@ -568,12 +568,13 @@ class MeshResidentPlacement(ResidentPlacement):
         penalty = penalty if use_penalty else [pen_off[:G]] * k
         extra = extra if use_extra else [extra_on[:G]] * k
         vol_topo = vol_topo if use_voltopo else vt_off[:G]
+        masks = sharded_static_mask(ready, node_val, node_plat,
+                                    node_plugins, constraints, plat_req,
+                                    req_plugins, extra, vol_topo)
         tables = [FillTables(
-            static_mask(ready[b], node_val[b], node_plat[b],
-                        node_plugins[b], constraints, plat_req, req_plugins,
-                        extra[b], vol_topo),
-            need_res, n_tasks, svc_idx_d, max_replicas, penalty[b],
-            has_ports, group_ports, spread_rank[b]) for b in range(k)]
+            masks[b], need_res, n_tasks, svc_idx_d, max_replicas,
+            penalty[b], has_ports, group_ports, spread_rank[b])
+            for b in range(k)]
         # the steps fold into the carry in place
         states = [FillState(total0[b], svc_mat[b], avail_res[b],
                             port_used[b]) for b in range(k)]

@@ -17,7 +17,8 @@ hand-written CUDA kernel with its plain PyTorch version beside its wrapper:
     csrc/water_fill.cuh (K3's too), one thread block cluster whose blocks
     share the global node range in chunks, whatever the shard count;
   * `sharded_binpack_fill_step` (K21, csrc/sharded_binpack_fill.cu) —
-    binpack, launched cooperatively, one block a shard.
+    binpack: the cap-weighted radix select of csrc/binpack_select.cuh
+    (K9's too), one thread block cluster over the global node range.
 
 A wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on one CUDA device; shards on two devices, or more
@@ -28,13 +29,14 @@ The plain versions are the reference's algorithms in sharded form: each
 reduction over nodes is a sum over the shards of each shard's own sum (the
 `psum`), and the boundary sort gathers the shards' keys (XLA's gather).
 
-`sharded_schedule_core` is the launch loop: `fill_inputs` runs K1
-(`static_mask`, unchanged) once per shard, then `sharded_fill` one step per
-group, in order. The overflow flags and their refusal are
-`ops/placement.py`'s.
+`sharded_schedule_core` is the launch loop: `fill_inputs` runs K1 over
+every shard in one launch (`ops.placement.sharded_static_mask`), then
+`sharded_fill` one step per group, in order. The overflow flags and their
+refusal are `ops/placement.py`'s.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -49,18 +51,18 @@ from ..ops.placement import (
     _bisect,
     _binpack_fill_plain,
     _check_fill,
+    _fits,
     _fold_plain,
     _node_caps_plain,
     _scratch_words,
     _segment_min,
     _segment_sum,
     _segmented_pour_plain,
-    static_mask,
+    sharded_static_mask,
 )
 
 _GROUP_FIELDS = ("need_res", "n_tasks", "svc_idx", "max_replicas",
                  "has_ports", "group_ports")
-_EXCHANGE_SLOTS = 2          # the two alternating rows of k partials
 
 
 def _psum(parts):
@@ -254,13 +256,10 @@ def _check_shards(tables, states, outs, flags, g) -> tuple[int, ...]:
     return k, n, R, PV, L
 
 
-def _fits(x, dtype, shape) -> bool:
-    return x.dtype == dtype and x.shape == shape and x.is_contiguous()
-
-
 def _water_fill_dims(tables, states, outs, flags, g) -> tuple[int, ...]:
-    """`_check_shards` in one pass for K20's launches: the same conditions,
-    each tensor read once (the group-side tables once for all shards).
+    """`_check_shards` in one pass for K20's and K21's launches: the same
+    conditions, each tensor read once (the group-side tables once for all
+    shards).
     Whatever it does not accept goes through `_check_shards`, which raises
     its error as before. Returns (k, n, R, PV, L)."""
     try:
@@ -359,36 +358,76 @@ def sharded_binpack_fill_step(tables, states, g, outs, flags) -> None:
                       *_tensors(tables, states, outs, flags)) == "plain":
         return sharded_binpack_fill_step_plain(tables, states, g, outs,
                                                flags)
-    k, n, R, PV, _ = _check_shards(tables, states, outs, flags, g)
-    dev = flags.device
-    cap = torch.empty(k * n, dtype=torch.int32, device=dev)
-    xch = torch.empty(_EXCHANGE_SLOTS * k, dtype=torch.int64, device=dev)
-    rows = _kernels.pointer_table(_shard_rows(tables, states, outs),
-                                   dev)
-    rc = _kernels.lib("sharded_binpack_fill").skt_sharded_binpack_fill_step(
-        *_group_ptrs(tables[0]), rows.data_ptr(), flags.data_ptr(),
-        cap.data_ptr(), xch.data_ptr(), g, k, n, R, PV,
-        _kernels.stream_of(flags))
-    _kernels.check(rc, "sharded_binpack_fill_step")
-    sharded_binpack_fill_step.launches += 1
+    _binpack_launches(tables, states, outs, flags, (g,))
 
 
 sharded_binpack_fill_step.launches = 0
 
 
+def _binpack_launches(tables, states, outs, flags, groups) -> None:
+    """K21's steps for `groups`, in order, on CUDA tensors: the checks
+    (`_water_fill_dims` with the first group; every other must be in
+    range too), the node scratch and the pointer table once, then one
+    launch a group. The launch loop (`sharded_fill`) passes all its
+    groups, so a step costs it one ctypes call."""
+    k, n, R, PV, _ = _water_fill_dims(tables, states, outs, flags,
+                                      groups[0])
+    dev = flags.device
+    words = _binpack_scratch(dev.index, k, n)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev) \
+        if words else None
+    rows = _kernels.pointer_table(_shard_rows(tables, states, outs),
+                                   dev)
+    args = (*_group_ptrs(tables[0]), rows.data_ptr(), flags.data_ptr(),
+            None if scratch is None else scratch.data_ptr())
+    step, stream = _binpack_entries()[0], _kernels.raw_stream(flags)
+    for g in groups:
+        rc = step(*args, g, k, n, R, PV, stream)
+        _kernels.check(rc, "sharded_binpack_fill_step")
+        sharded_binpack_fill_step.launches += 1
+
+
+@functools.cache
+def _binpack_entries():
+    """K21's C entries: (step, plan, scratch words)."""
+    cdll = _kernels.lib("sharded_binpack_fill")
+    return (cdll.skt_sharded_binpack_fill_step,
+            cdll.skt_sharded_binpack_fill_plan,
+            cdll.skt_sharded_binpack_fill_scratch_i32)
+
+
+def binpack_plan(k: int, n: int, device_index: int = 0) -> tuple[int, ...]:
+    """How K21's step over k x n nodes launches on the device: (cluster
+    size, dynamic shared memory, nodes in shared memory)."""
+    buf = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        rc = _binpack_entries()[1](k, n, buf)
+    if rc:
+        raise _kernels.KernelLaunchError(
+            f"sharded_binpack_fill_step: plan query, CUDA error {rc}")
+    return tuple(buf)
+
+
+@functools.lru_cache(maxsize=64)
+def _binpack_scratch(device_index: int, k: int, n: int) -> int:
+    """int32 words of node scratch K21's step over k x n nodes needs: 0
+    when its plan keeps the nodes in shared memory."""
+    if binpack_plan(k, n, device_index)[2]:
+        return 0
+    return _scratch_words(_binpack_entries()[2](k, n),
+                          "sharded_binpack_fill_step")
+
+
 def max_shards(strategy: int = 0) -> int:
-    """The most shards the strategy's kernel takes: for K21 the blocks the
-    card holds co-resident (its cooperative launch refuses more); for K20 a
-    fixed 1,024 (its blocks do not map to shards)."""
+    """The most shards the strategy's kernel takes: a fixed 1,024 for K20
+    and for K21 (their blocks do not map to shards; the limit keeps the
+    per-call pointer table to one small upload). One more raises
+    `KernelLaunchError` at the launch."""
     if strategy == 1:
-        n = _kernels.lib("sharded_binpack_fill") \
+        return _kernels.lib("sharded_binpack_fill") \
             .skt_sharded_binpack_fill_max_shards()
-    else:
-        n = _kernels.lib("sharded_water_fill") \
-            .skt_sharded_water_fill_max_shards()
-    if n < 0:
-        raise _kernels.KernelLaunchError(f"occupancy query: CUDA error {-n}")
-    return n
+    return _kernels.lib("sharded_water_fill") \
+        .skt_sharded_water_fill_max_shards()
 
 
 # -------------------------------------------------------- launch loop
@@ -416,10 +455,10 @@ def fill_inputs(args):
     """The sharded steps' inputs from `parallel.mesh.shard_problem`'s
     tuple (KERNEL_ARG_FIELDS order, each node-axis field a list of k
     per-shard tensors, each group-side field one tensor, all on one
-    device): K1 once per shard for the tables, clones of the node state
-    (the inputs are not modified). Returns (tables, states, n_branches),
-    n_branches one past the largest branch id, checked with svc_idx in
-    one device read."""
+    device): K1 over every shard in one launch for the tables, clones of
+    the node state (the inputs are not modified). Returns (tables,
+    states, n_branches), n_branches one past the largest branch id,
+    checked with svc_idx in one device read."""
     (ready, node_val, node_plat, node_plugins, extra_mask, constraints,
      plat_req, req_plugins, avail_res, total0, svc_count0, n_tasks, svc_idx,
      need_res, max_replicas, penalty, has_ports, group_ports, port_used0,
@@ -428,12 +467,12 @@ def fill_inputs(args):
     n = ready[0].shape[0]
     n_branches = _check_ranges(svc_idx, spread_rank, k * n,
                                svc_count0[0].shape[0])
+    masks = sharded_static_mask(ready, node_val, node_plat, node_plugins,
+                                constraints, plat_req, req_plugins,
+                                extra_mask, vol_topo)
     tables = [FillTables(
-        static_mask(ready[b], node_val[b], node_plat[b], node_plugins[b],
-                    constraints, plat_req, req_plugins, extra_mask[b],
-                    vol_topo),
-        need_res, n_tasks, svc_idx, max_replicas, penalty[b], has_ports,
-        group_ports, spread_rank[b]) for b in range(k)]
+        masks[b], need_res, n_tasks, svc_idx, max_replicas, penalty[b],
+        has_ports, group_ports, spread_rank[b]) for b in range(k)]
     states = [FillState(total0[b].clone(), svc_count0[b].clone(),
                         avail_res[b].clone(), port_used0[b].clone())
               for b in range(k)]
@@ -443,15 +482,20 @@ def fill_inputs(args):
 def sharded_fill(tables, states, strategy: int = 0,
                  n_branches: int | None = None):
     """One K20 (spread, topology) or K21 (binpack, `strategy=1`) step per
-    group, in order, each folding every shard's state in place. Returns
+    group, in order, each folding every shard's state in place (K21's
+    steps on the card share one check and one pointer table). Returns
     (counts: k tensors int32[G, n], overflow flags int32[G])."""
     G, n = tables[0].mask.shape
     dev = tables[0].n_tasks.device
     counts = [torch.zeros((G, n), dtype=torch.int32, device=dev)
               for _ in tables]
     flags = torch.zeros(G, dtype=torch.int32, device=dev)
-    if n:
+    if n and G:
         if strategy == 1:
+            if _kernels.route("sharded placement", *_tensors(
+                    tables, states, counts, flags)) == "kernel":
+                _binpack_launches(tables, states, counts, flags, range(G))
+                return counts, flags
             step = sharded_binpack_fill_step
         else:
             step = functools.partial(sharded_water_fill_step,
